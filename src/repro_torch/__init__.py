@@ -1,0 +1,20 @@
+"""repro_torch: the MINISA reproduction on PyTorch and CUDA (NVIDIA H100).
+
+A second package beside the JAX/Pallas one (``repro``), with the same
+sub-package and module names so each counterpart is easy to find.  It
+imports ``torch`` and never ``jax``, and nothing of ``repro``.
+
+Ported so far (the serving main path):
+
+  configs   model and FEATHER+ configurations
+  obs       span tracer, metrics registry, exporters
+  core      MINISA ISA, layouts, perf model, Program IR, mapper, planner
+  faults    fault plans and the injector the scheduler wires in
+  kernels   hand-written CUDA kernels (``nest_gemm``, ``fused_chain``,
+            ``flash_decode``) and their plain PyTorch versions
+  backends  ``CudaBackend`` (registry name ``"cuda"``)
+  runtime   ProgramCache, ModelExecutable, Scheduler
+
+Entry points run on the card by default (``device="cuda"``); the plain
+versions run only for tensors on the CPU (``device="cpu"``).
+"""

@@ -1,0 +1,285 @@
+"""The port's runtime (ProgramCache, ModelExecutable, Scheduler) against the
+JAX package's, on the CUDA backend with ``device="cpu"`` (the kernels'
+plain versions): the same seeded tensors bit for bit, the same stream
+structure and batch plans, the same numbers within the reference's
+tolerances, and per-request ``state_checksum``s bit-equal to the
+reference's sequential interpreter run in every row of
+``tests/test_batched_decode.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.feather import feather_config as j_feather
+from repro.runtime import ModelExecutable as JExecutable
+from repro.runtime import ProgramCache as JCache
+from repro.runtime import Scheduler as JScheduler
+from repro_torch.configs.feather import feather_config as t_feather
+from repro_torch.runtime import ModelExecutable as TExecutable
+from repro_torch.runtime import ProgramCache as TCache
+from repro_torch.runtime import Scheduler as TScheduler
+from repro_torch.runtime import executable as t_executable
+from repro_torch.runtime import tensors_from_numpy
+
+#: mixed decode lengths and chunked prompts (tests/test_batched_decode.py)
+SUBMISSIONS = [(3, None), (1, None), (2, 64), (4, 32), (2, None)]
+ROWS = [(True, False, 5), (False, True, 5), (True, True, 5),
+        (True, True, 2), (True, True, 3)]
+
+
+@pytest.fixture(scope="module")
+def cells():
+    jc, tc = JCache(), TCache()
+    ref = tuple(JExecutable.for_cell("gemma-7b", s, j_feather(4, 16),
+                                     cache=jc)
+                for s in ("prefill_tiny", "decode_tiny"))
+    port = tuple(TExecutable.for_cell("gemma-7b", s, t_feather(4, 16),
+                                      cache=tc)
+                 for s in ("prefill_tiny", "decode_tiny"))
+    return ref, port
+
+
+def _serve(sched):
+    for steps, prompt in SUBMISSIONS:
+        sched.submit(decode_steps=steps, prompt_tokens=prompt)
+    rep = sched.run()
+    assert len(rep.requests) == len(SUBMISSIONS)
+    return {r.rid: r.state_checksum for r in rep.requests}, rep
+
+
+@pytest.fixture(scope="module")
+def oracle_checksums(cells):
+    """The reference's sequential per-request interpreter run."""
+    (pre, dec), _ = cells
+    sums, _ = _serve(JScheduler(pre, dec, backend="interpreter",
+                                batch_decode=False, use_fused=False))
+    return sums
+
+
+# ---------------------------------------------------------------------------
+# seeded tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kinds", [("weight", "dynamic", "input"),
+                                   ("weight",), ("dynamic",),
+                                   ("dynamic", "input"), ("input",)])
+def test_make_tensors_bit_equal(cells, kinds, monkeypatch):
+    # a tiny chunk makes every tensor a multi-chunk draw
+    monkeypatch.setattr(t_executable, "_DRAW_CHUNK", 7)
+    (jpre, jdec), (tpre, tdec) = cells
+    for jex, tex in ((jpre, tpre), (jdec, tdec)):
+        for seed in (0, 3, 1_000_004):
+            want = jex.make_tensors(seed, kinds=kinds)
+            got = tex.make_tensors(seed, kinds=kinds)
+            assert list(got) == list(want)
+            for name in want:
+                assert got[name].dtype == np.float32
+                assert np.array_equal(got[name], want[name]), name
+
+
+def test_tensors_from_numpy_moves_any_reference_dict(cells):
+    (_, jdec), _ = cells
+    env = jdec.make_tensors(5)
+    moved = tensors_from_numpy(env, "cpu")
+    assert set(moved) == set(env)
+    for name, arr in env.items():
+        assert moved[name].dtype == torch.float32
+        assert np.array_equal(moved[name].numpy(), arr)
+
+
+# ---------------------------------------------------------------------------
+# structure: steps, segments, fused geometry, batch plans
+# ---------------------------------------------------------------------------
+
+def _structure(ex) -> dict:
+    return {
+        "describe": {k: v for k, v in ex.describe().items() if k != "name"},
+        "steps": [(s.op.gemm.m, s.op.gemm.k, s.op.gemm.n, s.input_mode,
+                   s.program.act_name, s.host_act is not None, s.reps,
+                   s.program.choice.df.name, s.program.n_tiles,
+                   s.program.input_elided) for s in ex.steps],
+        "segments": [(seg.indices, None if seg.fused is None
+                      else seg.fused.describe()) for seg in ex.segments],
+        "plans": {n: ([(b.kind, b.indices, b.fused is not None, b.m_rows)
+                       for b in ex.batch_plan(n).segments],
+                      ex.batch_plan(n).launches_per_tick)
+                  for n in (1, 2, 3, 5)},
+        "fusion": ex.fusion_stats(),
+        "perf": {k: v for k, v in ex.perf_stats().items()},
+    }
+
+
+def _compiled_segments(ex, compile_segment) -> list:
+    segs = [s.fused for s in ex.segments if s.fused is not None]
+    segs += [b.fused for n in (1, 2, 3, 5)
+             for b in ex.batch_plan(n).segments if b.fused is not None]
+    return [compile_segment(seg).describe() for seg in segs]
+
+
+def test_reduced_cells_same_structure(cells):
+    from repro.backends import compile_segment as j_compile_segment
+    from repro_torch.backends import compile_segment as t_compile_segment
+    (jpre, jdec), (tpre, tdec) = cells
+    for jex, tex in ((jpre, tpre), (jdec, tdec)):
+        assert _structure(tex) == _structure(jex)
+        assert _compiled_segments(tex, t_compile_segment) == \
+            _compiled_segments(jex, j_compile_segment)
+    assert tdec.batch_plan(1).launches_per_tick == 7
+
+
+@pytest.mark.parametrize("shape", ["prefill_tiny", "decode_tiny"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_matches_reference(cells, shape, fused):
+    (jpre, jdec), (tpre, tdec) = cells
+    jex, tex = (jpre, tpre) if shape == "prefill_tiny" else (jdec, tdec)
+    env = jex.make_tensors(7)
+    got = tex.run("cuda", tensors=env, check=True, fused=fused,
+                  device="cpu")
+    want = jex.run("pallas", tensors=env, fused=fused)
+    assert got.fused_segments == want.fused_segments
+    k_max = max(s.op.gemm.k for s in tex.steps)
+    np.testing.assert_allclose(got.final.numpy(), want.final, rtol=2e-4,
+                               atol=2e-4 * k_max)
+
+
+def test_run_batch_matches_sequential_and_reference(cells):
+    (_, jdec), (_, tdec) = cells
+    weights = jdec.make_tensors(0, kinds=("weight",))
+    envs = []
+    for r in range(5):
+        env = dict(weights)
+        env.update(jdec.make_tensors(10 + r, kinds=("dynamic",)))
+        env.update(jdec.make_tensors(100 + r, kinds=("input",)))
+        envs.append(env)
+    be = tdec.make_backend("cuda", device="cpu")
+    l0 = be.n_launches
+    got = tdec.run_batch(be, envs, fused=True)
+    assert be.n_launches - l0 == tdec.batch_plan(5).launches_per_tick
+    want = jdec.run_batch("pallas", envs, fused=True)
+    k_max = max(s.op.gemm.k for s in tdec.steps)
+    for r in range(5):
+        seq = tdec.run(be, tensors=envs[r]).final
+        np.testing.assert_allclose(got[r].numpy(), seq.numpy(), rtol=2e-4,
+                                   atol=2e-4 * k_max)
+        np.testing.assert_allclose(got[r].numpy(), want[r], rtol=2e-4,
+                                   atol=2e-4 * k_max)
+
+
+# ---------------------------------------------------------------------------
+# the spine: checksums bit-equal to the reference's interpreter oracle
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch,fused,conc", ROWS)
+def test_checksums_match_reference_oracle(cells, oracle_checksums, batch,
+                                          fused, conc):
+    (jpre, jdec), (tpre, tdec) = cells
+    sums, rep = _serve(TScheduler(tpre, tdec, device="cpu",
+                                  batch_decode=batch, use_fused=fused,
+                                  max_concurrent=conc))
+    assert sums == oracle_checksums
+    assert rep.batch_decode == batch and rep.decode_fused == fused
+    _, jrep = _serve(JScheduler(jpre, jdec, backend="pallas",
+                                batch_decode=batch, use_fused=fused,
+                                max_concurrent=conc))
+    assert rep.launches_per_decode_tick == jrep.launches_per_decode_tick
+    assert rep.decode_launches == jrep.decode_launches
+    if batch and fused:
+        assert rep.launches_per_decode_tick == \
+            tdec.batch_plan(1).launches_per_tick
+
+
+def test_scheduler_defaults_key_on_the_cuda_backend(cells):
+    """The fused and batched fast paths default on for ``"cuda"`` (the
+    reference keys them on ``"pallas"``), and a warm cache costs no
+    searches or compiles."""
+    _, (tpre, tdec) = cells
+    sched = TScheduler(tpre, tdec, device="cpu")
+    assert sched.use_fused and sched.batch_decode
+    _serve(sched)
+    snap = tpre.cache.stats.snapshot()
+    sums, rep = _serve(TScheduler(tpre, tdec, device="cpu",
+                                  max_concurrent=5))
+    delta = tpre.cache.stats.delta(snap)
+    assert delta["plan_misses"] == 0 and delta["compile_misses"] == 0
+    assert rep.launches_per_decode_tick == 7
+
+
+# ---------------------------------------------------------------------------
+# full width, structure only
+# ---------------------------------------------------------------------------
+
+def test_full_width_structure_matches_reference():
+    """gemma-7b at full width on the 16x256 array: the same steps,
+    modes and choices, no fused segment (the fused VMEM budget rejects
+    every full-width segment), and 9 launches per decode tick."""
+    for shape in ("prefill_tiny", "decode_tiny"):
+        jex = JExecutable.for_cell("gemma-7b", shape, j_feather(16, 256),
+                                   cache=JCache(), reduce_model=False)
+        tex = TExecutable.for_cell("gemma-7b", shape, t_feather(16, 256),
+                                   cache=TCache(), reduce_model=False)
+        assert _structure(tex) == _structure(jex)
+        assert [repr(s.program.choice) for s in tex.steps] == \
+            [repr(s.program.choice) for s in jex.steps]
+        assert all(seg.fused is None for seg in tex.segments)
+        assert tex.tensor_specs() == jex.tensor_specs()
+    assert tex.batch_plan(1).launches_per_tick == 9
+    assert [s.kind for s in tex.batch_plan(4).segments].count("static") == 6
+
+
+# ---------------------------------------------------------------------------
+# the ProgramCache never loads the reference's cache file
+# ---------------------------------------------------------------------------
+
+def test_cache_refuses_a_reference_cache_file(tmp_path):
+    from repro.core.mapper import Gemm as JGemm
+    from repro_torch.core.mapper import Gemm as TGemm
+    path = tmp_path / "plans.pkl"
+    jcache = JCache(path)
+    jcache.plan(JGemm(m=8, k=16, n=16), j_feather(4, 16))
+    jcache.save()
+    with pytest.raises(ValueError, match="backend"):
+        TCache(path)
+    tpath = tmp_path / "port.pkl"
+    tcache = TCache(tpath)
+    tcache.plan(TGemm(m=8, k=16, n=16), t_feather(4, 16))
+    tcache.save()
+    fresh = TCache(tpath)
+    assert fresh.stats.loaded_from_disk == 1
+    fresh.plan(TGemm(m=8, k=16, n=16), t_feather(4, 16))
+    assert fresh.stats.searches == 0
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's numpy glue: vectorised/prefix forms == the reference loops
+# ---------------------------------------------------------------------------
+
+def test_host_glue_equals_reference(cells):
+    """Paged KV seed/gather/commit and the carry -> inputs path are
+    bit-equal to the reference's loop versions, for carries longer and
+    shorter than what the next step reads."""
+    from repro.runtime import scheduler as jsched
+    from repro_torch.runtime import scheduler as tsched
+    (_, jdec), (_, tdec) = cells
+    jpool = jsched.KVPool(jsched._kv_specs(jdec), 3, 12)
+    tpool = tsched.KVPool(tsched._kv_specs(tdec), 3, 12)
+    rng = np.random.default_rng(4)
+    pages = [7, 2, 9, 0, 11, 5]
+    jkv, tkv = jsched.PagedKV(jpool, pages), tsched.PagedKV(tpool, pages)
+    dyn = jdec.make_tensors(9, kinds=("dynamic",))
+    jkv.seed(dyn)
+    tkv.seed(dyn)
+    for pos, size in enumerate((1, 5, 16, 300, 4096)):
+        out = rng.standard_normal((1, size)).astype(np.float32) * 2
+        jkv.commit(out, pos)
+        tkv.commit(out, pos)
+        want, got = jkv.gather(), tkv.gather()
+        assert list(got) == list(want)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (name, size)
+        jin = jdec.inputs_from(jsched._stabilize(out))
+        tin = tsched._carry_inputs(tdec, out)
+        assert list(tin) == list(jin)
+        for name in jin:
+            assert np.array_equal(tin[name].numpy(), jin[name]), name
+    for name in jpool.arenas:
+        assert np.array_equal(tpool.arenas[name], jpool.arenas[name])
