@@ -17,11 +17,15 @@
 //
 // What bounds it on an H100: the segments that fuse are small (the
 // FUSED_VMEM_BUDGET legality rule admits them only at reduced width:
-// bm <= 32 rows, layers of a few hundred columns), so one launch is a
-// few microseconds of work and launch latency, not bytes or flops,
-// dominates.  What the design does about it: the whole chain is one
-// launch with one block per M block (an adapt boundary forces a single
-// block, since the permutation needs every row); the slab (bm, k_slab)
+// bm <= 32 rows, layers of a few hundred columns), and one block works
+// through the whole chain alone, layer after layer, with scalar FFMA
+// inner loops.  So serial compute in a single block bounds it (about
+// 0.085 ms for the reduced decode segment on an H100, some 15 launch
+// latencies), not launch latency, bytes or the card's flops; spreading a
+// layer's columns over several blocks is later work.  What the design
+// does: the whole chain is one launch with one block per M block (an
+// adapt boundary forces a single block, since the permutation needs
+// every row), so no interior activation round-trips; the slab (bm, k_slab)
 // and accumulator (bm, n_max) live in shared memory when
 // 4 * bm * (k_slab + n_max) fits the 200 KB this kernel allows itself,
 // and otherwise in a global scratch buffer the wrapper allocates (the

@@ -18,7 +18,6 @@ Before this module every consumer memoised its own slice of that pipeline
   sharded    (structural program key, mesh shape, axis)   -> ShardedProgram
   fused      (per-layer compiled keys, segment geometry)  -> CompiledSegment
   frontier   (structural segment key)                     -> SegmentFrontier
-  tuned      (structural segment key + tuning state)      -> TunedGeometry
 
 ``plan`` also accepts a ``core.conv.Conv2D`` (anything with ``to_gemm``):
 the im2col GEMM shape is the search problem, so convs share the same
@@ -59,17 +58,17 @@ if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.program import Program
 
 #: Disk-payload version: bumped whenever the pickled layout changes.
-#: Version 2 added the per-tier ``schema`` dict and the persisted tuned
-#: tier; version 3 moved every entry under ``tiers`` as an individually
+#: Version 2 added the per-tier ``schema`` dict; version 3 moved every entry under ``tiers`` as an individually
 #: pickled ``(blob, sha256)`` pair, so load verifies each entry's
 #: content checksum and a corrupt entry quarantines (counting a miss)
 #: instead of poisoning -- or crashing -- the next process.
 _PERSIST_VERSION = 3
 
 #: Per-tier entry schemas inside the payload; a tier whose schema
-#: doesn't match is rejected wholesale (same guard, finer grain: a
-#: future plan-layout change won't discard still-valid tuned winners).
-_TIER_SCHEMAS = {"plans": 2, "tuned": 2}
+#: doesn't match is rejected wholesale.  Only the plan tier persists: the
+#: measured-autotune (tuned) tier arrives with ``runtime.autotune``, its
+#: only writer.
+_TIER_SCHEMAS = {"plans": 2}
 
 #: The backend this package compiles for.  It leads every compiled key
 #: and is written into the disk payload, so a cache file persisted by the
@@ -98,8 +97,6 @@ class CacheStats:
     fused_misses: int = 0         # == fused-segment compiles
     frontier_hits: int = 0
     frontier_misses: int = 0      # == joint segment searches performed
-    tuned_hits: int = 0
-    tuned_misses: int = 0         # == tuned-geometry lookups that missed
     disk_rejected: int = 0        # stale persisted payloads refused
     disk_corrupt: int = 0         # checksum-failed entries quarantined
     evictions: int = 0
@@ -119,7 +116,7 @@ class CacheStats:
     def hits(self) -> int:
         return (self.plan_hits + self.lowered_hits + self.compile_hits
                 + self.sharded_hits + self.fused_hits
-                + self.frontier_hits + self.tuned_hits)
+                + self.frontier_hits)
 
     @property
     def misses(self) -> int:
@@ -149,8 +146,6 @@ class CacheStats:
             "fused_hits": self.fused_hits,
             "frontier_searches": self.frontier_misses,
             "frontier_hits": self.frontier_hits,
-            "tuned_hits": self.tuned_hits,
-            "tuned_misses": self.tuned_misses,
             "disk_rejected": self.disk_rejected,
             "disk_corrupt": self.disk_corrupt,
             "evictions": self.evictions,
@@ -200,21 +195,14 @@ def fused_key(segment, max_block: int) -> tuple:
 
 def segment_key(programs, *, adapts=None,
                 vmem_budget: int | None = None,
-                operand_dtype: str = "float32",
-                tuning: tuple = ()) -> tuple:
+                operand_dtype: str = "float32") -> tuple:
     """Structural key of a chained segment *before* any launch geometry
     exists: per-layer (shape, MappingChoice, activation name), the
     config, the adapt boundaries and the streamed budget -- what the
-    joint search (frontier tier) and the measured winner (tuned tier)
-    are both functions of.
-
-    ``tuning`` carries the measurement state a tuned winner is only
-    valid for (backend kind, device, max_block): an autotune
-    result measured with the plain CPU versions never serves a CUDA
-    process.  Unlike ``compiled_key`` this key holds no ``id()``-based
-    activation token (activation *names* suffice -- geometry does not
-    depend on the callable), so tuned entries pickle cleanly and stay
-    valid across processes.
+    joint search (frontier tier) is a function of.  Unlike
+    ``compiled_key`` this key holds no ``id()``-based activation token
+    (activation *names* suffice -- geometry does not depend on the
+    callable).
     """
     if adapts is None:
         adapts = (False,) * len(programs)
@@ -223,7 +211,7 @@ def segment_key(programs, *, adapts=None,
     layers = tuple((p.gemm.m, p.gemm.k, p.gemm.n, p.choice, p.act_name)
                    for p in programs)
     return (layers, programs[0].cfg, tuple(adapts), int(vmem_budget),
-            operand_dtype, programlib.FUSED_STREAM_DEPTH, tuple(tuning))
+            operand_dtype, programlib.FUSED_STREAM_DEPTH)
 
 
 class ProgramCache:
@@ -246,11 +234,6 @@ class ProgramCache:
         self._sharded: dict[tuple, Any] = {}
         self._fused: dict[tuple, Any] = {}
         self._frontiers: dict[tuple, Any] = {}
-        self._tuned: dict[tuple, Any] = {}
-        # struct part of a tuned key -> its full key (latest stored
-        # winner wins), so segment builds can consume tuned geometry
-        # without knowing which tuning state produced it
-        self._tuned_by_struct: dict[tuple, tuple] = {}
         self.stats = CacheStats()
         self.max_plans = max_plans
         # variant/artifact tiers are bounded too (several lowering
@@ -260,7 +243,6 @@ class ProgramCache:
         self.max_sharded = 8 * max_plans
         self.max_fused = 8 * max_plans
         self.max_frontiers = 4 * max_plans
-        self.max_tuned = 4 * max_plans
         self.path = os.fspath(path) if path is not None else None
         if self.path and os.path.exists(self.path):
             self.load(self.path)
@@ -413,53 +395,11 @@ class ProgramCache:
             self._frontiers[key] = front
         return front
 
-    # -- tier 7: measured autotune winners (persisted across processes) -------
-    def lookup_tuned(self, key: tuple):
-        """Exact-match lookup: ``key`` comes from :func:`segment_key`
-        *with* the tuning state the caller measures under."""
-        tg = self._tuned.get(key)
-        if tg is not None:
-            self.stats.tuned_hits += 1
-            self._tuned[key] = self._tuned.pop(key)   # LRU touch
-        else:
-            self.stats.tuned_misses += 1
-        return tg
-
-    def store_tuned(self, key: tuple, tuned) -> None:
-        self._evict_over(self._tuned, self.max_tuned)
-        self._tuned[key] = tuned
-        self._tuned_by_struct[key[:-1]] = key
-
-    def tuned_geometry(self, programs, *, adapts=None,
-                       vmem_budget: int | None = None,
-                       operand_dtype: str = "float32",
-                       tuning: tuple | None = None):
-        """The measured winner for a segment structure, or None.
-
-        With ``tuning`` given the lookup is exact; without, the most
-        recently stored winner for the structure is returned (segment
-        *builds* consume tuned geometry without knowing which backend
-        state tuned it -- the geometry is valid under any, only the
-        measured wall clock was state-specific)."""
-        if tuning is not None:
-            return self.lookup_tuned(segment_key(
-                programs, adapts=adapts, vmem_budget=vmem_budget,
-                operand_dtype=operand_dtype, tuning=tuning))
-        struct = segment_key(programs, adapts=adapts,
-                             vmem_budget=vmem_budget,
-                             operand_dtype=operand_dtype)[:-1]
-        full = self._tuned_by_struct.get(struct)
-        if full is None:
-            self.stats.tuned_misses += 1
-            return None
-        return self.lookup_tuned(full)
-
     # -- stats / persistence --------------------------------------------------
     def __len__(self) -> int:
         return (len(self._plans) + len(self._lowered)
                 + len(self._compiled) + len(self._sharded)
-                + len(self._fused) + len(self._frontiers)
-                + len(self._tuned))
+                + len(self._fused) + len(self._frontiers))
 
     def size_bytes(self) -> int:
         """Pickled payload size of the plan tier (computed on demand --
@@ -490,8 +430,7 @@ class ProgramCache:
                              self._sharded),
                  "fused": (s.fused_hits, s.fused_misses, self._fused),
                  "frontier": (s.frontier_hits, s.frontier_misses,
-                              self._frontiers),
-                 "tuned": (s.tuned_hits, s.tuned_misses, self._tuned)}
+                              self._frontiers)}
         for tier, (hits, misses, table) in tiers.items():
             reg.gauge("cache_hits",
                       "ProgramCache hits per tier").set(hits, tier=tier)
@@ -521,16 +460,15 @@ class ProgramCache:
                         "compiled": len(self._compiled),
                         "sharded": len(self._sharded),
                         "fused": len(self._fused),
-                        "frontiers": len(self._frontiers),
-                        "tuned": len(self._tuned)},
+                        "frontiers": len(self._frontiers)},
             "bytes": self.size_bytes(),
             **self.stats.summary(),
         }
 
     def save(self, path: str | os.PathLike | None = None) -> str:
-        """Persist the plan tier and the measured tuned winners (both
-        hold only value objects, so they pickle cleanly; variant/compiled
-        tiers hold callables/jitted artifacts and are re-derived).
+        """Persist the plan tier (it holds only value objects, so it
+        pickles cleanly; variant/compiled tiers hold callables and launch
+        geometry and are re-derived).
 
         Each entry is pickled on its own and stored as a
         ``(blob, sha256)`` pair under ``tiers`` so :meth:`load` can
@@ -552,20 +490,15 @@ class ProgramCache:
         items = list(self._plans.items())
         trimmed = max(0, len(items) - self.max_plans)
         self.stats.disk_evictions += trimmed
-        tuned = list(self._tuned.items())[-self.max_tuned:]
-        tiers = {}
-        for tier, entries in (("plans", items[trimmed:]),
-                              ("tuned", tuned)):
-            packed = []
-            for key, value in entries:
-                blob = pickle.dumps((key, value),
-                                    protocol=pickle.HIGHEST_PROTOCOL)
-                packed.append((blob, _entry_digest(blob)))
-            tiers[tier] = packed
+        packed = []
+        for key, value in items[trimmed:]:
+            blob = pickle.dumps((key, value),
+                                protocol=pickle.HIGHEST_PROTOCOL)
+            packed.append((blob, _entry_digest(blob)))
         payload = {"version": _PERSIST_VERSION,
                    "backend": BACKEND,
                    "schema": dict(_TIER_SCHEMAS),
-                   "tiers": tiers}
+                   "tiers": {"plans": packed}}
         dirname = os.path.dirname(path) or "."
         fd, tmp = tempfile.mkstemp(dir=dirname,
                                    prefix=os.path.basename(path) + ".",
@@ -646,28 +579,21 @@ class ProgramCache:
                     f"cache tier {tier!r} schema {schema.get(tier)!r} "
                     f"!= {want}")
         loaded = 0
-        tiers = payload.get("tiers", {})
-        for tier in ("plans", "tuned"):
-            for i, entry in enumerate(tiers.get(tier, [])):
-                try:
-                    blob, digest = entry
-                    if _entry_digest(blob) != digest:
-                        raise ValueError("checksum mismatch")
-                    key, value = pickle.loads(blob)
-                except Exception:
-                    blob = entry[0] if (isinstance(entry, (tuple, list))
-                                        and entry) else b""
-                    self._quarantine(path, f"{tier}-{i}.bin", bytes(blob))
-                    continue
-                if tier == "plans":
-                    if key not in self._plans:
-                        self._evict_over(self._plans, self.max_plans)
-                        loaded += 1
-                    self._plans[key] = value
-                else:
-                    if key not in self._tuned:
-                        loaded += 1
-                    self.store_tuned(key, value)
+        for i, entry in enumerate(payload.get("tiers", {}).get("plans", [])):
+            try:
+                blob, digest = entry
+                if _entry_digest(blob) != digest:
+                    raise ValueError("checksum mismatch")
+                key, value = pickle.loads(blob)
+            except Exception:
+                blob = entry[0] if (isinstance(entry, (tuple, list))
+                                    and entry) else b""
+                self._quarantine(path, f"plans-{i}.bin", bytes(blob))
+                continue
+            if key not in self._plans:
+                self._evict_over(self._plans, self.max_plans)
+                loaded += 1
+            self._plans[key] = value
         self.stats.loaded_from_disk += loaded
         return loaded
 

@@ -405,7 +405,7 @@ class ModelExecutable:
                     # applied host-side to the segment input
                     adapts = (False,) + tuple(
                         m == "adapt" for m in modes[1:])
-                    fused = self._fuse_with_tuned(progs, adapts)
+                    fused = programlib.fuse_segment(progs, adapts=adapts)
                 elif all(s is not None for s in shardeds):
                     # fuse WITHIN each array: legal when the whole run
                     # is M-sharded with aligned rows (mesh segments
@@ -439,24 +439,6 @@ class ModelExecutable:
             prev = (op, host_act)
         flush()
         return steps
-
-    def _fuse_with_tuned(self, progs,
-                         adapts: tuple[bool, ...] | None = None):
-        """Fused launch geometry for a chained run, preferring a
-        measured autotune winner (the ProgramCache tuned tier --
-        ``runtime.autotune``) over the greedy-then-snap default: a
-        serving process sharing a warmed cache consumes the tuned
-        geometry at build time, with zero searches and zero re-tuning."""
-        fused = programlib.fuse_segment(progs, adapts=adapts)
-        if fused is None:
-            return None
-        tg = self.cache.tuned_geometry(progs, adapts=adapts)
-        if tg is not None:
-            tuned = programlib.fuse_segment(
-                progs, adapts=adapts, bm=tg.bm, layer_bks=tg.layer_bks)
-            if tuned is not None:
-                return tuned
-        return fused
 
     # -- tensor environment ---------------------------------------------------
     def tensor_specs(self) -> dict[str, tuple[tuple[int, int], str]]:
@@ -707,7 +689,7 @@ class ModelExecutable:
                 fused = None
                 if len(progs) > 1:
                     progs = programlib.chain(progs, lower_fn=cache.lower)
-                    fused = self._fuse_with_tuned(progs)
+                    fused = programlib.fuse_segment(progs)
             except ValueError:
                 segs.append(BatchSegment(kind="perreq", indices=idx,
                                          programs=[]))

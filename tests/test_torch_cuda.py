@@ -82,9 +82,11 @@ def _decode_inputs(qshape, skv):
 @pytest.mark.parametrize("m,k,n,out_t,act", NEST_CASES + [
     (3, 96, 8200, True, "silu"),          # 32-column strips, ragged edge
     (8, 300, 16384, False, "relu"),
+    (4, 24576, 3072, True, None),         # the widest K of the main path
 ])
 def test_nest_gemm_kernel_matches_plain(cuda, m, k, n, out_t, act):
-    x, w = _t(_np((m, k)), cuda), _t(_np((k, n), k ** -0.5), cuda)
+    # unit-normal W: outputs of RMS sqrt(k), far above the 2e-4*k atol
+    x, w = _t(_np((m, k)), cuda), _t(_np((k, n)), cuda)
     before = ng.launches
     got = ops.nest_gemm(x, w, out_block_t=out_t, act=act)
     want = ref.nest_gemm_ref(x, w, out_block_t=out_t, act=act)
