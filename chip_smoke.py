@@ -8,13 +8,25 @@ Phases (any failure exits non-zero; no phase catches its own):
   1. environment: the card, CUDA, nvcc, and the kernel build (one nvcc
      per source under src/repro_torch/kernels/csrc, all started together);
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with times beside the least time the
-     card could take (bound) and one PyTorch library call (yardstick);
-  3. full-width gemma-7b (FEATHER+ 16x256) served by the Scheduler: 9
+     shapes its path gives it, with times (median, min and max of the
+     reps) beside the least time the card could take (bound) and one
+     PyTorch library call (yardstick); the card's clocks are read before,
+     during and after;
+  3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
+     heads at 4096 tokens and ``ops.mamba_scan`` at falcon-mamba-7b's
+     width, bit-equal to the kernels checked in phase 2;
+  4. full-width gemma-7b (FEATHER+ 16x256) served by the Scheduler: 9
      launches per decode tick through nest_gemm and flash_decode,
      deterministic checksums, batched == sequential decode;
-  4. the reduced gemma-7b cell (4x16): batched fused decode on the card
-     (fused_chain launched) with checksums bit-equal to the CPU path.
+  5. block-fused decode attention at full width: one
+     ``run_batched_attention_proj`` launch (flash_decode_proj) for 4
+     requests, equal to the base oracle (attention + adapt + Wo);
+  6. the reduced gemma-7b cell (4x16): batched fused decode on the card
+     (fused_chain launched) with checksums bit-equal to the CPU path;
+  7. autotune: every fused segment of the reduced cells measured on the
+     card, a warm second pass doing no work, the tuned serve's checksums
+     equal to the untuned serve's, and no segment legal to tune at full
+     width.
 
 Ends with the ``kernels`` JSON line, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
@@ -24,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -33,13 +46,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.backends import compile_program, compile_segment  # noqa: E402
+from repro_torch.backends import (Backend, CudaBackend,  # noqa: E402
+                                  compile_program, compile_segment)
 from repro_torch.configs.feather import feather_config  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.core import program as programlib  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_chain as fc  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nest_gemm as ng  # noqa: E402
-from repro_torch.runtime import ModelExecutable, ProgramCache, Scheduler  # noqa: E402
+from repro_torch.runtime import (ModelExecutable, ProgramCache,  # noqa: E402
+                                 Scheduler, autotune_segment, segment_key)
+from repro_torch.runtime.autotune import _segment_tensors  # noqa: E402
 
 #: H100 SXM data-sheet peaks (at the 700 W limit): HBM bytes/s and fp32
 #: FFMA flop/s outside the tensor cores
@@ -62,6 +80,16 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def clocks(when: str) -> None:
+    """The card's clocks, temperature and draw, beside the timings."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"clocks {when}: {out.splitlines()[0]} (sm, mem, max sm, "
+        f"temperature, draw)")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time (ms) the card could take, and what bounds it."""
     tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FP32
@@ -69,7 +97,8 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 class Timer:
-    """Mean device ms of ``fn`` by CUDA events, with L2 flushed before
+    """Device ms of ``fn`` by CUDA events over ``reps`` calls: their
+    median (``ms``), min and max, and every rep.  L2 is flushed before
     each call (the main path finds its weights cold: a decode tick reads
     4.25 GB) and the stream held busy while the host enqueues ``fn``, so
     host launch overhead is not timed."""
@@ -79,10 +108,10 @@ class Timer:
         self.start = torch.cuda.Event(enable_timing=True)
         self.end = torch.cuda.Event(enable_timing=True)
 
-    def __call__(self, fn, reps: int = REPS) -> float:
+    def __call__(self, fn, reps: int = REPS) -> dict:
         fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(reps):
             self.flush.zero_()
             torch.cuda._sleep(1_000_000)    # ~0.5 ms of device spin
@@ -90,8 +119,22 @@ class Timer:
             fn()
             self.end.record()
             self.end.synchronize()
-            total += self.start.elapsed_time(self.end)
-        return total / reps
+            times.append(self.start.elapsed_time(self.end))
+        return {"ms": statistics.median(times), "ms_min": min(times),
+                "ms_max": max(times), "reps": times}
+
+
+def spread(t: dict) -> str:
+    return f"{t['ms']:.4f} [{t['ms_min']:.4f}..{t['ms_max']:.4f}]"
+
+
+def row_stats(t: dict, plain: dict, lib: dict | None, nbytes: float,
+              flops: float, err: float) -> dict:
+    """A kernel's row: the medians, the kernel's spread, its work."""
+    return {"ms": t["ms"], "ms_min": t["ms_min"], "ms_max": t["ms_max"],
+            "plain_ms": plain["ms"],
+            "library_ms": None if lib is None else lib["ms"],
+            "bytes": nbytes, "flops": flops, "err": err}
 
 
 def check(name: str, got, want, k: int) -> float:
@@ -113,11 +156,15 @@ def check(name: str, got, want, k: int) -> float:
 
 def reset_counts() -> None:
     ng.launches = fc.launches = fa.launches = 0
+    fa.proj_launches = fa.attention_launches = ms.launches = 0
 
 
 def counts() -> dict:
     return {"nest_gemm": ng.launches, "fused_chain": fc.launches,
-            "flash_decode": fa.launches}
+            "flash_decode": fa.launches,
+            "flash_decode_proj": fa.proj_launches,
+            "flash_attention": fa.attention_launches,
+            "mamba_scan": ms.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -147,9 +194,9 @@ def nest_gemm_shapes(decode, prefill, bucket: int) -> list[tuple]:
 
 def check_nest_gemm(shapes, timer, gen) -> dict:
     log("K1 nest_gemm: M K N out_t act | launches/tick | max_err | "
-        "ms plain_ms library_ms bound_ms")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes": 0.0, "flops": 0.0, "err": 0.0}
+        "ms [min..max] plain_ms library_ms bound_ms | reps")
+    tot = {"ms": 0.0, "ms_min": 0.0, "ms_max": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
     for m, k, n, out_t, act, bk, per_tick in shapes:
         # unit-normal X and W: outputs of RMS sqrt(k), against an atol of
         # 2e-4*k (0.031 of the RMS at the widest K, 24576)
@@ -167,11 +214,14 @@ def check_nest_gemm(shapes, timer, gen) -> dict:
         nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * k * n
         b_ms, b_by = bound(nbytes, flops)
         log(f"  {m} {k} {n} {out_t} {act} | {per_tick} | {err:.3g} | "
-            f"{ms:.4f} {plain:.4f} {lib:.4f} {b_ms:.4f} ({b_by})")
+            f"{spread(ms)} {plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.4f} "
+            f"({b_by}) | {[round(r, 4) for r in ms['reps']]}")
         del got, want
         if per_tick:
-            for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("library_ms", lib), ("bytes", nbytes),
+            for key, val in (("ms", ms["ms"]), ("ms_min", ms["ms_min"]),
+                             ("ms_max", ms["ms_max"]),
+                             ("plain_ms", plain["ms"]),
+                             ("library_ms", lib["ms"]), ("bytes", nbytes),
                              ("flops", flops)):
                 tot[key] += per_tick * val
         tot["err"] = max(tot["err"], err)
@@ -197,10 +247,10 @@ def check_flash_decode(timer, gen) -> dict:
     nbytes = 4.0 * (2 * b * sq * d + 2 * used * d) + 4 * b
     flops = 4.0 * sq * used * d
     log(f"K3 flash_decode: B {b} sq {sq} skv {skv} d {d} lengths "
-        f"{lens.tolist()} | max_err {err:.3g} | ms {ms:.4f} plain {plain:.4f}"
-        f" sdpa {lib:.4f} bound {bound(nbytes, flops)[0]:.6f}")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
-            "flops": flops, "err": err}
+        f"{lens.tolist()} | max_err {err:.3g} | ms {spread(ms)} plain "
+        f"{plain['ms']:.4f} sdpa {lib['ms']:.4f} bound "
+        f"{bound(nbytes, flops)[0]:.6f}")
+    return row_stats(ms, plain, lib, nbytes, flops, err)
 
 
 def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
@@ -230,8 +280,8 @@ def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
 
 
 def check_fused_chain(cases, timer, gen) -> dict:
-    log("K2 fused_chain: case | dims | placement | max_err | ms plain_ms "
-        "library_ms bound_ms")
+    log("K2 fused_chain: case | dims | placement | max_err | ms [min..max] "
+        "plain_ms library_ms bound_ms")
     main = None
     for label, dims, bm, bks, acts, adapts in cases:
         x = torch.randn(*dims[0][:2], device="cuda", generator=gen)
@@ -266,18 +316,157 @@ def check_fused_chain(cases, timer, gen) -> dict:
         b_ms, _ = bound(nbytes, flops)
         bm_, _, _, k_slab, n_max = fc.geometry(dims, bm, bks, adapts)
         where = fc.placement(bm_, k_slab, n_max)
-        log(f"  {label} | {dims} | {where} | {err:.3g} | {ms:.4f} "
-            f"{plain:.4f} {lib:.4f} {b_ms:.6f}")
-        row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bytes": nbytes, "flops": flops, "err": err}
+        log(f"  {label} | {dims} | {where} | {err:.3g} | {spread(ms)} "
+            f"{plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.6f}")
+        row = row_stats(ms, plain, lib, nbytes, flops, err)
         if main is None:          # the decode tick's fused segment
             main = row
         main["err"] = max(main["err"], err)
     return main
 
 
+def attention_proj_inputs(decode, gen, bucket: int = 4) -> dict:
+    """The full-width decode plan's attention segment at ``bucket`` and
+    the wo step's adapt geometry (tests/test_batched_decode.py), with
+    unit-normal q, v and wo and keys at half scale (peaked softmax, so the
+    projected rows have RMS ~sqrt(k_out))."""
+    bseg = next(s for s in decode.batch_plan(bucket).segments
+                if s.kind == "attention")
+    nxt = decode.steps[bseg.indices[-1] + 1]
+    assert nxt.input_mode == "adapt", nxt.input_mode
+    g = nxt.op.gemm
+    qk, pv = bseg.programs
+    b, sq, d, skv, dv = bucket, qk.gemm.m, qk.gemm.k, qk.gemm.n, pv.gemm.n
+    lens = torch.tensor([skv, 1, 9, 5][:b], dtype=torch.int32,
+                        device="cuda")
+    return {"programs": (qk, pv), "m_out": g.m, "k_out": g.k, "n_out": g.n,
+            "q": torch.randn(b, sq, d, device="cuda", generator=gen),
+            "k": torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5,
+            "v": torch.randn(b, skv, dv, device="cuda", generator=gen),
+            "wo": torch.randn(g.k, g.n, device="cuda", generator=gen),
+            "lens": lens}
+
+
+def check_flash_decode_proj(decode, timer, gen) -> dict:
+    a = attention_proj_inputs(decode, gen)
+    q, k, v, wo, lens = a["q"], a["k"], a["v"], a["wo"], a["lens"]
+    m_out, k_out = a["m_out"], a["k_out"]
+    got = fa.flash_decode_proj(q, k, v, lens, wo, m_out=m_out, k_out=k_out)
+    want = ref.flash_decode_proj_ref(q, k, v, lens, wo, m_out=m_out,
+                                     k_out=k_out)
+    err = check("flash_decode_proj", got, want, k_out)
+    b, sq = q.shape[:2]
+    mask = (torch.arange(k.shape[1], device="cuda")[None, :]
+            < lens[:, None])[:, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        ctx = sdpa(q, k, v, attn_mask=mask, scale=1.0)
+        h = torch.stack([ref.adapt_rows(c, sq, m_out, k_out) for c in ctx])
+        return torch.matmul(h, wo)
+    ms_ = timer(lambda: fa.flash_decode_proj(q, k, v, lens, wo, m_out=m_out,
+                                             k_out=k_out))
+    plain = timer(lambda: ref.flash_decode_proj_ref(
+        q, k, v, lens, wo, m_out=m_out, k_out=k_out))
+    lib = timer(library)
+    used = int(lens.sum())
+    d, dv = q.shape[2], v.shape[2]
+    nbytes = 4.0 * (b * sq * d + used * (d + dv) + k_out * a["n_out"]
+                    + b * m_out * a["n_out"]) + 4 * b
+    flops = 2.0 * sq * used * (d + dv) + 2.0 * b * m_out * k_out * a["n_out"]
+    log(f"K4 flash_decode_proj: B {b} sq {sq} skv {k.shape[1]} d {d} "
+        f"lengths {lens.tolist()} adapt ({m_out}, {k_out}) @ wo "
+        f"{tuple(wo.shape)} | shared-memory group "
+        f"{fa.proj_group(b, sq, d, dv)} | max_err {err:.3g} | ms "
+        f"{spread(ms_)} plain {plain['ms']:.4f} sdpa+adapt+matmul "
+        f"{lib['ms']:.4f} bound {bound(nbytes, flops)[0]:.6f}")
+    return row_stats(ms_, plain, lib, nbytes, flops, err)
+
+
+#: gemma-7b's attention (16 heads of 256) at the repo's train_4k length
+ATTN_SHAPE = (1, 4096, 16, 256)
+#: falcon-mamba-7b's selective scan: d_inner 8192, d_state 16, 4096 tokens
+SCAN_SHAPE = (1, 4096, 8192, 16)
+
+
+def check_flash_attention(timer, gen) -> tuple[dict, tuple]:
+    b, s, h, d = ATTN_SHAPE
+    # q at 8x scale: scores of std ~8, a peaked softmax whose output RMS
+    # (~0.8) is over 10x the 2e-4 * d atol
+    q = torch.randn(b * h, s, d, device="cuda", generator=gen) * 8.0
+    k = torch.randn(b * h, s, d, device="cuda", generator=gen)
+    v = torch.randn(b * h, s, d, device="cuda", generator=gen)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    err = check("flash_attention", got, want, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms_ = timer(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain = timer(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lib = timer(lambda: sdpa(q, k, v, is_causal=True))
+    nbytes = 4.0 * 4 * b * h * s * d
+    flops = 4.0 * b * h * d * s * (s + 1) / 2     # causal pairs only
+    log(f"K5 flash_attention: BH {b * h} S {s} d {d} causal fp32 | max_err "
+        f"{err:.3g} | ms {spread(ms_)} plain {plain['ms']:.4f} sdpa "
+        f"{lib['ms']:.4f} bound {bound(nbytes, flops)[0]:.4f}")
+    return row_stats(ms_, plain, lib, nbytes, flops, err), (q, k, v, got)
+
+
+def check_mamba_scan(timer, gen) -> tuple[dict, tuple]:
+    b, seq, d, n = SCAN_SHAPE
+    da = 0.7 + 0.299 * torch.rand(b, seq, d, n, device="cuda",
+                                  generator=gen)
+    dbx = torch.randn(b, seq, d, n, device="cuda", generator=gen) * 0.1
+    c = torch.randn(b, seq, n, device="cuda", generator=gen)
+    h0 = torch.randn(b, d, n, device="cuda", generator=gen) * 0.1
+    y, h = ms.mamba_scan(da, dbx, c, h0)
+    y_ref, h_ref = ref.mamba_scan_ref(da, dbx, c, h0)
+    err = check("mamba_scan", y, y_ref, n)
+    # the state is a rounded multiply then a rounded add in both versions
+    assert torch.equal(h, h_ref), float((h - h_ref).abs().max())
+    ms_ = timer(lambda: ms.mamba_scan(da, dbx, c, h0))
+    plain = timer(lambda: ref.mamba_scan_ref(da, dbx, c, h0))
+    nbytes = 4.0 * (2 * b * seq * d * n + b * seq * n + 2 * b * d * n
+                    + b * seq * d)
+    flops = 4.0 * b * seq * d * n
+    log(f"K6 mamba_scan: B {b} L {seq} D {d} N {n} | max_err {err:.3g}, "
+        f"h_last bit-equal | ms {spread(ms_)} plain {plain['ms']:.4f} "
+        f"library none | bound {bound(nbytes, flops)[0]:.4f}")
+    return (row_stats(ms_, plain, None, nbytes, flops, err),
+            (da, dbx, c, h0, y, h))
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: serving
+# phase 3: the kernel ops entry point
+# ---------------------------------------------------------------------------
+
+def ops_entry_point(attn, scan) -> dict:
+    """``ops.flash_attention`` on [B, S, H, D] and ``ops.mamba_scan``, as a
+    user calls them, on phase 2's inputs: bit-equal to the kernels'
+    results that phase 2 held against the plain versions."""
+    b, s, h, d = ATTN_SHAPE
+    q, k, v, kernel_out = attn
+    heads = [x.reshape(b, h, s, d).transpose(1, 2) for x in (q, k, v)]
+    da, dbx, c, h0, y_kernel, h_kernel = scan
+    reset_counts()
+    out = ops.flash_attention(*heads, causal=True)
+    y, h_last = ops.mamba_scan(da, dbx, c, h0)
+    torch.cuda.synchronize()
+    launched = counts()
+    log(f"ops entry point: launches {launched}")
+    assert launched["flash_attention"] == 1 and launched["mamba_scan"] == 1
+    assert out.shape == (b, s, h, d) and bool(torch.isfinite(out).all())
+    assert torch.equal(out.transpose(1, 2).reshape(b * h, s, d),
+                       kernel_out)
+    assert y.shape == SCAN_SHAPE[:3] and bool(torch.isfinite(y).all())
+    assert torch.equal(y, y_kernel) and torch.equal(h_last, h_kernel)
+    log(f"ops entry point: flash_attention {tuple(out.shape)} and "
+        f"mamba_scan {tuple(y.shape)}, {tuple(h_last.shape)} bit-equal to "
+        f"the checked kernels")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# phases 4 to 7: serving, block-fused decode attention, autotune
 # ---------------------------------------------------------------------------
 
 def serve(sched, requests) -> tuple[dict, object]:
@@ -355,7 +544,36 @@ def full_width(gen) -> dict:
     return launched
 
 
-def reduced_width() -> dict:
+def attention_proj_full_width(decode, gen) -> dict:
+    """``CudaBackend.run_batched_attention_proj`` on the full-width decode
+    plan's attention segment at 4 requests: one launch, equal to the base
+    oracle (the attention launch, then adapt and Wo per request)."""
+    a = attention_proj_inputs(decode, gen)
+    be = decode.make_backend("cuda")
+    kT = a["k"].transpose(1, 2)
+    lengths = a["lens"].cpu().numpy()
+    reset_counts()
+    n0 = be.n_launches
+    out = be.run_batched_attention_proj(
+        a["programs"], a["q"], kT, a["v"], a["wo"], m_out=a["m_out"],
+        k_out=a["k_out"], lengths=lengths)
+    torch.cuda.synchronize()
+    launched = counts()
+    log(f"attention proj: launches {launched}, backend n_launches delta "
+        f"{be.n_launches - n0}")
+    assert be.n_launches - n0 == 1
+    assert launched["flash_decode_proj"] == 1
+    assert sum(launched.values()) == 1, launched
+    oracle = Backend.run_batched_attention_proj(
+        be, a["programs"], a["q"], kT, a["v"], a["wo"], m_out=a["m_out"],
+        k_out=a["k_out"], lengths=lengths)
+    err = check("run_batched_attention_proj", out, oracle, a["k_out"])
+    log(f"attention proj: [{tuple(out.shape)}] one launch, equal to the "
+        f"base oracle (max |err| {err:.3g}, atol {RTOL * a['k_out']:.3g})")
+    return launched
+
+
+def reduced_width() -> tuple[dict, dict]:
     cfg = feather_config(4, 16)
     cache = ProgramCache()
     prefill = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
@@ -379,6 +597,125 @@ def reduced_width() -> dict:
     log(f"reduced width: launches in the serve {launched}, "
         f"{rep.launches_per_decode_tick} per decode tick; checksums equal "
         f"to the CPU path: {sums}")
+    return launched, sums
+
+
+def fused_runs(cells) -> list[tuple]:
+    """(label, programs, adapts, greedy FusedSegment) of every distinct
+    fused segment the cells build: their segments and their decode
+    batch plans at buckets 1..5 (the reduced serve's)."""
+    runs, seen = [], set()
+    for label, ex in cells:
+        segs = [(label, s.fused) for s in ex.segments if s.fused is not None]
+        segs += [(f"{label}@{n}", b.fused) for n in range(1, 6)
+                 for b in ex.batch_plan(n).segments if b.fused is not None]
+        for lab, seg in segs:
+            progs, adapts = list(seg.programs), tuple(seg.adapts)
+            key = segment_key(progs, adapts=adapts)
+            if key not in seen:
+                seen.add(key)
+                runs.append((lab, progs, adapts, programlib.fuse_segment(
+                    progs, adapts=adapts)))
+    return runs
+
+
+def autotune_phase(untuned_sums: dict, fw_cells) -> dict:
+    """Autotune every fused segment of the reduced cells on the card, then
+    check the warm pass does no work and the tuned serve's checksums."""
+    cfg = feather_config(4, 16)
+    cache = ProgramCache()
+    cells = [(shape, ModelExecutable.for_cell("gemma-7b", shape, cfg,
+                                              cache=cache))
+             for shape in ("prefill_tiny", "decode_tiny")]
+    be = CudaBackend(cfg, compile_cache=cache)
+    runs = fused_runs(cells)
+    reset_counts()
+    n0 = be.n_launches
+    reports = []
+    for label, progs, adapts, greedy in runs:
+        rep = autotune_segment(progs, be, cache=cache, adapts=adapts,
+                               top_k=4, iters=3)
+        assert rep is not None and not rep.cached, label
+        w = rep.winner
+        trials = [(t["bm"], tuple(t["layer_bks"]),
+                   round(t["median_s"] * 1e6, 1)) for t in rep.trials]
+        greedy_us = next((us for bm, bks, us in trials
+                          if (bm, bks) == (greedy.bm, greedy.layer_bks)),
+                         None)
+        log(f"autotune {label} {[p.gemm.name for p in progs]}: trials "
+            f"(bm, layer_bks, median us) {trials}; winner ({w.bm}, "
+            f"{w.layer_bks}) {w.measured_s * 1e6:.1f} us vs greedy "
+            f"({greedy.bm}, {greedy.layer_bks}) {greedy_us} us")
+        reports.append((label, progs, adapts, greedy, w))
+    launched = counts()
+    assert launched["fused_chain"] == be.n_launches - n0 > 0, launched
+
+    snap = cache.stats.snapshot()
+    n1 = be.n_launches
+    for _, progs, adapts, _, w in reports:
+        again = autotune_segment(progs, be, cache=cache, adapts=adapts,
+                                 top_k=4, iters=3)
+        assert again.cached and again.winner == w
+    delta = cache.stats.delta(snap)
+    assert (delta["frontier_misses"], delta["fused_misses"],
+            delta["compile_misses"]) == (0, 0, 0), delta
+    assert be.n_launches == n1 and counts() == launched
+    log(f"autotune: second pass over {len(reports)} segments: "
+        f"{delta['tuned_hits']} tuned hits, 0 frontier/fused/compile "
+        f"misses, 0 launches")
+
+    # does the fused kernel's sum order follow bk?  the same inputs at the
+    # tuned and the greedy geometry
+    for label, progs, adapts, greedy, w in reports:
+        if (w.bm, w.layer_bks) == (greedy.bm, tuple(greedy.layer_bks)):
+            continue
+        tuned = programlib.fuse_segment(progs, adapts=adapts, bm=w.bm,
+                                        layer_bks=w.layer_bks)
+        t = {name: be.to_device(arr)
+             for name, arr in _segment_tensors(progs).items()}
+        out_t = be.run_segment(tuned, t)[tuned.out_name].clone()
+        out_g = be.run_segment(greedy, t)[greedy.out_name]
+        log(f"autotune {label}: tuned vs greedy output bit-equal "
+            f"{torch.equal(out_t, out_g)}, max |diff| "
+            f"{float((out_t - out_g).abs().max()):.3g}")
+
+    t_pre = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
+                                     cache=cache)
+    t_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
+                                     cache=cache)
+    built = [s.fused for ex in (t_pre, t_dec) for s in ex.segments
+             if s.fused is not None]
+    built += [b.fused for n in range(1, 6) for b in t_dec.batch_plan(n).segments
+              if b.fused is not None]
+    n_off_greedy = 0
+    for seg in built:
+        g = programlib.fuse_segment(list(seg.programs),
+                                    adapts=tuple(seg.adapts))
+        n_off_greedy += (seg.bm, seg.layer_bks) != (g.bm, g.layer_bks)
+    requests = [(steps, prompt, rid) for rid, (steps, prompt)
+                in enumerate(SUBMISSIONS)]
+    sums, _ = serve(Scheduler(t_pre, t_dec, max_concurrent=5), requests)
+    assert sums == untuned_sums, (sums, untuned_sums)
+    log(f"autotune: tuned serve ({n_off_greedy} of {len(built)} fused "
+        f"segments built at a geometry other than the greedy one) "
+        f"checksums equal to the untuned serve and the CPU path: {sums}")
+
+    fw_cache = ProgramCache()
+    fw_be = CudaBackend(feather_config(16, 256), compile_cache=fw_cache)
+    n_chained = 0
+    for ex in fw_cells:
+        for seg in ex.segments:
+            if len(seg.indices) < 2:
+                continue
+            steps = [ex.steps[i] for i in seg.indices]
+            adapts = (False,) + tuple(st.input_mode == "adapt"
+                                      for st in steps[1:])
+            assert autotune_segment([st.program for st in steps], fw_be,
+                                    cache=fw_cache, adapts=adapts) is None
+            n_chained += 1
+    assert n_chained > 0 and fw_be.n_launches == 0
+    log(f"autotune: full width, {n_chained} chained runs, none legal to "
+        f"fuse or tune")
     return launched
 
 
@@ -404,6 +741,7 @@ def main() -> int:
                 log(f"  {n}: {line.strip()}")
 
     # phase 2
+    clocks("before phase 2")
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
     cfg = feather_config(16, 256)
@@ -413,6 +751,7 @@ def main() -> int:
     fw_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
                                       cache=cache, reduce_model=False)
     k1 = check_nest_gemm(nest_gemm_shapes(fw_dec, fw_pre, 4), timer, gen)
+    clocks("after nest_gemm")
     k3 = check_flash_decode(timer, gen)
     rcache = ProgramCache()
     r_pre = ModelExecutable.for_cell("gemma-7b", "prefill_tiny",
@@ -420,29 +759,43 @@ def main() -> int:
     r_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny",
                                      feather_config(4, 16), cache=rcache)
     k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen)
+    k4 = check_flash_decode_proj(fw_dec, timer, gen)
+    k5, attn = check_flash_attention(timer, gen)
+    k6, scan = check_mamba_scan(timer, gen)
+    clocks("after phase 2")
     del timer
     torch.cuda.empty_cache()
 
-    # phases 3 and 4, each with the counts set to 0 just before it
+    # phases 3 to 7, each with the counts set to 0 just before it
+    op = ops_entry_point(attn, scan)
+    del attn, scan
+    torch.cuda.empty_cache()
     fw = full_width(gen)
-    rw = reduced_width()
+    fp = attention_proj_full_width(fw_dec, gen)
+    rw, untuned_sums = reduced_width()
+    autotune_phase(untuned_sums, (fw_pre, fw_dec))
 
+    src = "src/repro_torch/kernels/csrc/"
     rows = []
-    for name, route, src, replaces, stats, launches in (
-            ("nest_gemm", "cuda", "src/repro_torch/kernels/csrc/nest_gemm.cu",
-             "src/repro/kernels/nest_gemm.py:97", k1, fw["nest_gemm"]),
-            ("flash_decode", "cuda",
-             "src/repro_torch/kernels/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_attention.py:256", k3,
+    for name, replaces, stats, launches in (
+            ("nest_gemm", "src/repro/kernels/nest_gemm.py:97", k1,
+             fw["nest_gemm"]),
+            ("flash_decode", "src/repro/kernels/flash_attention.py:256", k3,
              fw["flash_decode"]),
-            ("fused_chain", "cuda",
-             "src/repro_torch/kernels/csrc/fused_chain.cu",
-             "src/repro/kernels/fused_chain.py:240", k2,
-             rw["fused_chain"])):
+            ("fused_chain", "src/repro/kernels/fused_chain.py:240", k2,
+             rw["fused_chain"]),
+            ("flash_decode_proj", "src/repro/kernels/flash_attention.py:218",
+             k4, fp["flash_decode_proj"]),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:99",
+             k5, op["flash_attention"]),
+            ("mamba_scan", "src/repro/kernels/mamba_scan.py:61", k6,
+             op["mamba_scan"])):
         b_ms, b_by = bound(stats["bytes"], stats["flops"])
-        rows.append({"name": name, "route": route, "source": src,
-                     "replaces": replaces, "launches": launches,
-                     "max_abs_err": stats["err"], "ms": stats["ms"],
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"{src}{name}.cu", "replaces": replaces,
+                     "launches": launches, "max_abs_err": stats["err"],
+                     "ms": stats["ms"], "ms_min": stats["ms_min"],
+                     "ms_max": stats["ms_max"],
                      "plain_ms": stats["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": stats["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)

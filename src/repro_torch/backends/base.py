@@ -78,6 +78,23 @@ class Backend(abc.ABC):
         per-request gathered KV operands, ``lengths`` the per-request
         true KV lengths.  Returns the stacked [B, m, d_o] context."""
 
+    def run_batched_attention_proj(self, programs, q, kT, v, wo, *,
+                                   m_out: int, k_out: int,
+                                   lengths=None) -> torch.Tensor:
+        """Block-fused decode attention: the attention pair PLUS the
+        adapt-cycled output projection ``wo`` for every request.
+
+        This implementation replays :meth:`run_batched_attention` and
+        applies the runtime ``adapt`` + GEMM per request -- the oracle for
+        the compiled override, which folds the projection into the same
+        launch as the attention.  Returns [B, m_out, n_out]."""
+        from repro_torch.runtime.executable import adapt
+        ctx = self.run_batched_attention(programs, q, kT, v,
+                                         lengths=lengths)
+        wo = self.to_device(wo)
+        return torch.stack([adapt(ctx[r], m_out, k_out) @ wo
+                            for r in range(ctx.shape[0])])
+
     def reset(self) -> None:
         self.outputs = {}
 

@@ -16,6 +16,7 @@ the whole tile lattice runs as a single kernel launch per layer --
                                       accumulator orientation
   fused segment                   ->  one ``fused_chain`` launch
   batched decode attention        ->  one ``flash_decode`` launch
+  ... with the Wo projection      ->  one ``flash_decode_proj`` launch
 
 Tensors live on ``device``: ``"cuda"`` (the default) launches the
 kernels and raises when there is no GPU; ``"cpu"`` runs every kernel's
@@ -322,6 +323,27 @@ class CudaBackend(Backend):
                         batch=int(q.shape[0])) as sp:
             out = kernel_ops.flash_decode(self.to_device(q), k,
                                           self.to_device(v), lengths)
+            if sp:
+                self._sync()
+                sp.set(n_launches=self.n_launches)
+        return out
+
+    def run_batched_attention_proj(self, programs, q, kT, v, wo, *,
+                                   m_out, k_out, lengths=None):
+        """ONE ``flash_decode_proj`` launch: batched ragged attention
+        with the adapt head-merge and the output projection in the same
+        kernel.  Replaces the attention launch plus B per-request Wo
+        launches."""
+        self.n_launches += 1
+        _LAUNCHES.inc(1, kernel="flash_decode_proj")
+        k = self.to_device(kT).transpose(1, 2).contiguous()
+        if lengths is not None:
+            lengths = torch.as_tensor(np.asarray(lengths, np.int32))
+        with trace.span("launch", kernel="flash_decode_proj",
+                        batch=int(q.shape[0])) as sp:
+            out = kernel_ops.flash_decode_proj(
+                self.to_device(q), k, self.to_device(v), self.to_device(wo),
+                lengths, m_out=m_out, k_out=k_out)
             if sp:
                 self._sync()
                 sp.set(n_launches=self.n_launches)

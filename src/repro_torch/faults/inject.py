@@ -306,6 +306,12 @@ class FaultyBackend:
         return self._guard(self._inner.run_batched_attention, None,
                            programs, q, kT, v, lengths=lengths)
 
+    def run_batched_attention_proj(self, programs, q, kT, v, wo, *,
+                                   m_out, k_out, lengths=None):
+        return self._guard(self._inner.run_batched_attention_proj, None,
+                           programs, q, kT, v, wo, m_out=m_out,
+                           k_out=k_out, lengths=lengths)
+
     # -- passthrough ---------------------------------------------------------
     def __getattr__(self, name):
         return getattr(self._inner, name)

@@ -1,0 +1,115 @@
+// Selective scan (the Mamba-1 inner recurrence) for Hopper, fp32.
+//
+// Replaces: repro/kernels/mamba_scan.py, mamba_scan / _scan_kernel (the
+// Pallas TPU kernel on grid (batch, channel blocks, L chunks) that carries
+// the state in VMEM across the sequential chunk axis).
+//
+//   h_t = da_t * h_{t-1} + dbx_t        elementwise over [D, N]
+//   y_t = sum_n c_t[n] * h_t[:, n]
+//
+// da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N]; y [B, L, D] and
+// h_last [B, D, N].
+//
+// What bounds it on an H100: bytes.  Each da and dbx element is read once
+// and used for 3 flops; at falcon-mamba-7b's d_inner 8192, N 16 and
+// L 4096 da and dbx are 2.15 GB each, ~1.3 ms at 3.35 TB/s.
+//
+// What the design does about it: the TPU kernel's L chunks exist only to
+// fit VMEM and have no counterpart.  Each thread holds one (b, d, n)
+// state element in a register for the whole of L, so the state never
+// touches memory; the N threads of one channel are adjacent lanes, so a
+// warp's loads of one time step are contiguous along (d, n) and y's sum
+// over n is a shuffle tree among those N lanes.  Each thread issues its
+// loads 8 time steps ahead of the recurrence, which keeps enough bytes
+// in flight to cover HBM latency with one block per 256 state elements.
+// The update is a rounded multiply, then a rounded add (no FMA), as the
+// plain version computes it, so the state is bit-equal to the plain
+// version's and only y's sum order differs.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kAhead = 8;                // time steps loaded ahead
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    mamba_scan_kernel(const float* __restrict__ da,
+                      const float* __restrict__ dbx,
+                      const float* __restrict__ c,
+                      const float* __restrict__ h0, float* __restrict__ y,
+                      float* __restrict__ h_last, int L, int D) {
+  constexpr int kChannels = kThreads / N;          // channels per block
+  const int b = blockIdx.y;
+  const int d = blockIdx.x * kChannels + threadIdx.x / N;
+  const int n = threadIdx.x % N;
+  const bool live = d < D;
+  const size_t step = (size_t)D * N;               // one time step of da
+  const size_t base = (size_t)b * L * step + (size_t)d * N + n;
+  const float* cb = c + (size_t)b * L * N + n;
+  float h = live ? h0[((size_t)b * D + d) * N + n] : 0.0f;
+
+  for (int t0 = 0; t0 < L; t0 += kAhead) {
+    float a[kAhead], x[kAhead], cc[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int t = t0 + u;
+      const bool ok = live && t < L;
+      a[u] = ok ? __ldg(da + base + (size_t)t * step) : 0.0f;
+      x[u] = ok ? __ldg(dbx + base + (size_t)t * step) : 0.0f;
+      cc[u] = t < L ? __ldg(cb + (size_t)t * N) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (t0 + u >= L) break;                      // uniform across the block
+      h = __fadd_rn(__fmul_rn(a[u], h), x[u]);
+      float yv = __fmul_rn(cc[u], h);
+#pragma unroll
+      for (int off = N / 2; off > 0; off >>= 1)
+        yv += __shfl_xor_sync(0xffffffffu, yv, off);
+      if (n == 0 && live) y[((size_t)b * L + t0 + u) * D + d] = yv;
+    }
+  }
+  if (live) h_last[((size_t)b * D + d) * N + n] = h;
+}
+
+template <int N>
+cudaError_t launch(const float* da, const float* dbx, const float* c,
+                   const float* h0, float* y, float* h_last, int B, int L,
+                   int D, cudaStream_t stream) {
+  constexpr int kChannels = kThreads / N;
+  dim3 grid((D + kChannels - 1) / kChannels, B);
+  mamba_scan_kernel<N>
+      <<<grid, kThreads, 0, stream>>>(da, dbx, c, h0, y, h_last, L, D);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N], y [B, L, D], h_last
+// [B, D, N], contiguous fp32 on the device; N a power of two up to 32.
+// Returns the launch's cudaError_t.
+extern "C" int mamba_scan_f32(const void* da, const void* dbx, const void* c,
+                              const void* h0, void* y, void* h_last, int B,
+                              int L, int D, int N, void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  const float* a = static_cast<const float*>(da);
+  const float* x = static_cast<const float*>(dbx);
+  const float* cf = static_cast<const float*>(c);
+  const float* h = static_cast<const float*>(h0);
+  float* yf = static_cast<float*>(y);
+  float* hl = static_cast<float*>(h_last);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (N) {
+    case 1: err = launch<1>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 2: err = launch<2>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 4: err = launch<4>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 8: err = launch<8>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 16: err = launch<16>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 32: err = launch<32>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

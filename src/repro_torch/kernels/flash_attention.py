@@ -1,14 +1,23 @@
-"""Batched ragged decode attention as a hand-written CUDA kernel.
+"""Attention as hand-written CUDA kernels: the three TPU kernels of
+``repro/kernels/flash_attention.py``.
 
 ``flash_decode(q, k, v, lengths)`` launches ``csrc/flash_decode.cu``: one
 launch advances a whole batch of decode requests, each row attending
 over its own K/V masked to its own true length, by the online-softmax
-recurrence over KV blocks.  Like the TPU kernel it replaces
-(``repro/kernels/flash_attention.py``, ``flash_decode``) it applies no
-``d**-0.5`` by default: the MINISA GEMM stream's score GEMM carries none.
+recurrence over KV blocks.  Like the TPU kernel it applies no ``d**-0.5``
+by default: the MINISA GEMM stream's score GEMM carries none.
 
-The file's other two TPU kernels -- the block-fused ``flash_decode_proj``
-and the prefill ``flash_attention`` -- are not ported yet.
+``flash_decode_proj(q, k, v, lengths, wo, ...)`` launches
+``csrc/flash_decode_proj.cu``: the same attention for every request,
+then the runtime ``adapt`` head-merge of each context and its product
+with the shared output projection ``wo`` -- attention + Wo for the whole
+batch in one launch.
+
+``flash_attention(q, k, v, ...)`` launches ``csrc/flash_attention.cu``:
+prefill attention over [BH, S, d], causal or full, scale ``d**-0.5``,
+fp32 or bf16 inputs with fp32 sums.
+
+Each kernel has its own launch counter.
 """
 
 from __future__ import annotations
@@ -19,10 +28,22 @@ import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the count was last set to 0
-launches = 0
+#: launches of each kernel since its count was last set to 0
+launches = 0                 # flash_decode
+proj_launches = 0            # flash_decode_proj
+attention_launches = 0       # flash_attention
+
+#: dynamic shared memory flash_decode_proj allows itself (its static
+#: arrays take at most 17 KB more, within the 227 KB a block can have)
+PROJ_SMEM_LIMIT = 200 * 1024
+#: flash_decode_proj's KV block (``csrc/flash_decode_proj.cu``)
+_PROJ_BLOCK_KV = 16
+#: the widest head_dim flash_attention takes
+MAX_HEAD_DIM = 256
 
 _FN = None
+_PROJ_FN = None
+_ATTN_FN = None
 
 
 def _fn():
@@ -63,4 +84,117 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     float(scale), build.stream_handle())
     build.raise_on_error(err, "flash_decode")
     launches += 1
+    return out
+
+
+def _proj_fn():
+    global _PROJ_FN
+    if _PROJ_FN is None:
+        fn = build.load("flash_decode_proj").flash_decode_proj_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _PROJ_FN = fn
+    return _PROJ_FN
+
+
+def proj_group(b: int, sq: int, d: int, dv: int) -> int:
+    """How many requests' contexts ``flash_decode_proj`` keeps in shared
+    memory at once (all ``b`` when they fit; raises when not even one
+    does)."""
+    base = sq * d + _PROJ_BLOCK_KV * (d + dv) + sq * _PROJ_BLOCK_KV + 3 * sq
+    fit = (PROJ_SMEM_LIMIT // 4 - base) // (sq * dv)
+    if fit < 1:
+        raise ValueError(f"flash_decode_proj: one context [{sq}, {dv}] with "
+                         f"q [{sq}, {d}] exceeds {PROJ_SMEM_LIMIT} bytes of "
+                         f"shared memory")
+    return min(b, fit)
+
+
+def flash_decode_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, wo: torch.Tensor, *,
+                      m_out: int, k_out: int,
+                      scale: float = 1.0) -> torch.Tensor:
+    """q [B, sq, d], k [B, skv, d], v [B, skv, dv], lengths [B] int32,
+    wo [k_out, n_out] on the card; returns [B, m_out, n_out]: each
+    request's context adapted to [m_out, k_out] and multiplied by wo."""
+    global proj_launches
+    build.check_operand(q, "q", 3)
+    build.check_operand(k, "k", 3)
+    build.check_operand(v, "v", 3)
+    build.check_operand(lengths, "lengths", 1, torch.int32)
+    build.check_operand(wo, "wo", 2)
+    b, sq, d = q.shape
+    skv = k.shape[1]
+    if (k.shape[0], k.shape[2]) != (b, d) or tuple(v.shape[:2]) != (b, skv) \
+            or lengths.shape[0] != b or wo.shape[0] != k_out:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, lengths "
+                         f"{tuple(lengths.shape)}, wo {tuple(wo.shape)} "
+                         f"(k_out {k_out}) do not match")
+    if len({t.device for t in (q, k, v, lengths, wo)}) != 1:
+        raise ValueError("q, k, v, lengths and wo must share one device")
+    if m_out < 1 or k_out < 1 or sq < 1:
+        raise ValueError(f"m_out {m_out}, k_out {k_out} and sq {sq} must "
+                         f"be positive")
+    dv, n_out = v.shape[2], wo.shape[1]
+    group = proj_group(b, sq, d, dv)
+    out = torch.empty((b, m_out, n_out), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        err = _proj_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lengths.data_ptr(), wo.data_ptr(), out.data_ptr(),
+                         b, sq, skv, d, dv, m_out, k_out, n_out, group,
+                         float(scale), build.stream_handle())
+    build.raise_on_error(err, "flash_decode_proj")
+    proj_launches += 1
+    return out
+
+
+def _attn_fn():
+    global _ATTN_FN
+    if _ATTN_FN is None:
+        fn = build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ATTN_FN = fn
+    return _ATTN_FN
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """q [BH, S, d], k and v [BH, S_kv, d] on the card, all float32 or all
+    bfloat16; returns [BH, S, d] in their dtype, scaled by ``d**-0.5``.
+    Keys at or past ``kv_len`` (default S_kv) are masked."""
+    global attention_launches
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{dtype}")
+    build.check_operand(q, "q", 3, dtype)
+    build.check_operand(k, "k", 3, dtype)
+    build.check_operand(v, "v", 3, dtype)
+    bh, s, d = q.shape
+    sk = k.shape[1]
+    if (k.shape[0], k.shape[2]) != (bh, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("q, k and v must share one device")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes head_dim 1..{MAX_HEAD_DIM},"
+                         f" got {d}")
+    kv_len = sk if kv_len is None else kv_len
+    if not 0 <= kv_len <= sk:
+        raise ValueError(f"kv_len {kv_len} outside 0..{sk}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _attn_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), bh, s, sk, d, kv_len, int(causal),
+                         int(dtype == torch.bfloat16), d ** -0.5,
+                         build.stream_handle())
+    build.raise_on_error(err, "flash_attention")
+    attention_launches += 1
     return out

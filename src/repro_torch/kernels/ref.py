@@ -3,7 +3,8 @@
 Each function computes what its kernel computes, in the JAX package's
 arithmetic order (``repro.kernels``: the blocked-K accumulation of
 ``nest_gemm``, the per-layer K-tile loop of ``fused_chain``, the
-online-softmax recurrence of ``flash_decode``).  The wrappers in
+online-softmax recurrence of ``flash_decode``, ``flash_decode_proj`` and
+``flash_attention``, the per-step recurrence of ``mamba_scan``).  The wrappers in
 ``kernels.ops`` take these only for tensors on the CPU -- the
 counterpart of Pallas interpret mode -- and ``chip_smoke.py`` holds each
 kernel against its plain version on the card.
@@ -153,3 +154,78 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + p @ vb
         m = m_new
     return acc / torch.clamp_min(l, 1e-30)
+
+
+def flash_decode_proj_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: torch.Tensor, wo: torch.Tensor, *,
+                          m_out: int, k_out: int, bkv: int = 128,
+                          scale: float = 1.0) -> torch.Tensor:
+    """Block-fused decode attention: each request's :func:`flash_decode_ref`
+    context ([sq, d], every row a true row) raveled row-major, cycled to
+    ``m_out * k_out`` elements, refolded to [m_out, k_out] (the runtime
+    ``adapt`` head-merge) and multiplied by the shared ``wo [k_out, n_out]``.
+    Returns [B, m_out, n_out]."""
+    ctx = flash_decode_ref(q, k, v, lengths, bkv=bkv, scale=scale)
+    h = torch.stack([adapt_rows(c, c.shape[0], m_out, k_out) for c in ctx])
+    return h @ wo.to(torch.float32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, bq: int = 128,
+                        bkv: int = 128,
+                        kv_len: int | None = None) -> torch.Tensor:
+    """Prefill attention over [BH, S, d] by the online-softmax recurrence
+    over KV blocks of ``bkv`` for each query block of ``bq``: scale
+    ``d**-0.5``, KV blocks strictly after a causal query block skipped,
+    key positions at or past ``kv_len`` masked, and p = 0 wherever a score
+    is masked.  With bf16 inputs p is rounded to v's dtype before the PV
+    product; sums run in fp32 and the result takes q's dtype."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    scale = d ** -0.5
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    out = torch.empty((bh, sq, v.shape[2]), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, sq, bq):
+        qb = qf[:, q0:q0 + bq]
+        rows = qb.shape[1]
+        qpos = q0 + torch.arange(rows, device=q.device).reshape(-1, 1)
+        m = torch.full((bh, rows, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((bh, rows, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((bh, rows, v.shape[2]), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, sk, bkv):
+            if causal and k0 > q0 + bq - 1:
+                break                # every later block lies after q0's
+            kb, vb = kf[:, k0:k0 + bkv], vf[:, k0:k0 + bkv]
+            s = (qb @ kb.transpose(1, 2)) * scale
+            kpos = k0 + torch.arange(kb.shape[1], device=q.device)
+            keep = (kpos < kv_len).reshape(1, -1)
+            if causal:
+                keep = keep & (kpos.reshape(1, -1) <= qpos)
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                            torch.exp(s - m_new))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).to(torch.float32) @ vb
+            m = m_new
+        out[:, q0:q0 + rows] = acc / torch.clamp_min(l, 1e-30)
+    return out.to(q.dtype)
+
+
+def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
+                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan step by step: ``h = da_t * h + dbx_t`` over
+    [B, D, N], ``y_t = sum_n c_t[n] * h[:, n]``.  da, dbx [B, L, D, N],
+    c [B, L, N], h0 [B, D, N]; returns (y [B, L, D], h_last [B, D, N])."""
+    b, seq, d, _ = da.shape
+    h = h0.to(torch.float32)
+    y = torch.empty((b, seq, d), dtype=torch.float32, device=da.device)
+    for t in range(seq):
+        h = da[:, t].to(torch.float32) * h + dbx[:, t].to(torch.float32)
+        y[:, t] = (h * c[:, t, None, :].to(torch.float32)).sum(dim=-1)
+    return y, h

@@ -14,10 +14,14 @@ and a batched serving scheduler.
   scheduler   Scheduler -- continuous-batching serving loop over
               prefill/decode executables with per-request MINISA vs
               micro-instruction traffic and stall reporting
-
-Measured autotuning (``runtime.autotune``) is not ported yet.
+  autotune    autotune_segment -- measures the fused-segment frontier's
+              top points through the backend's launch spans and keeps
+              the winner in the cache's tuned tier, which executables
+              build their fused segments from
 """
 
+from repro_torch.runtime.autotune import (AutotuneReport,  # noqa: F401
+                                          TunedGeometry, autotune_segment)
 from repro_torch.runtime.cache import (CacheStats, ProgramCache,  # noqa: F401
                                        default_cache, reset_default_cache,
                                        segment_key)
@@ -31,7 +35,7 @@ from repro_torch.runtime.scheduler import (KVPool, PagedKV, Request,  # noqa: F4
                                            SchedulerReport)
 
 __all__ = [
-    "segment_key", "CacheStats", "ProgramCache", "default_cache",
+    "AutotuneReport", "TunedGeometry", "autotune_segment", "segment_key", "CacheStats", "ProgramCache", "default_cache",
     "reset_default_cache", "ACTIVATIONS", "BatchPlan", "BatchSegment",
     "ModelExecutable", "RunResult", "Segment", "Step", "TINY_SHAPES",
     "adapt", "tensors_from_numpy", "KVPool", "PagedKV", "Request",

@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_chain as fc
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import nest_gemm as ng
 
 RNG = np.random.default_rng(11)
@@ -65,6 +66,44 @@ DECODE_CASES = [
     ((3, 2, 8), 12, (12, 3, 7), 8),
     ((2, 1, 16), 40, (0, 33), 16),
 ]
+
+
+# (B, sq, skv, d, lengths, m_out, k_out, n_out): the adapt geometries of
+# tests/test_batched_decode.py (shrink, identity, growth), a length-0
+# request, and non-float4 column counts
+PROJ_CASES = [
+    (3, 1, 16, 12, (16, 7, 11), 1, 12, 6),
+    (3, 1, 16, 12, (16, 7, 11), 2, 8, 6),
+    (3, 1, 16, 12, (16, 7, 11), 3, 5, 6),
+    (2, 2, 40, 16, (0, 33), 3, 20, 72),
+    (5, 3, 9, 8, (9, 1, 4, 9, 2), 2, 30, 13),
+]
+
+# (b, s, h, d, causal): tests/test_kernels.py's flash_attention grid
+ATTN_CASES = [
+    (2, 128, 2, 64, True), (2, 128, 2, 64, False),
+    (1, 256, 4, 32, True), (2, 192, 1, 128, True),
+    (1, 320, 2, 64, False),
+]
+
+# (b, l, d, n): tests/test_kernels.py's mamba_scan grid
+SCAN_CASES = [(2, 64, 32, 16), (1, 128, 64, 8), (2, 256, 16, 4)]
+
+
+def _proj_inputs(b, sq, skv, d, k_out, n_out):
+    return (_np((b, sq, d)), _np((b, skv, d)), _np((b, skv, d)),
+            _np((k_out, n_out)))
+
+
+def _attn_inputs(b, s, h, d, sk=None):
+    sk = s if sk is None else sk
+    return (_np((b, s, h, d), 0.3), _np((b, sk, h, d), 0.3),
+            _np((b, sk, h, d)))
+
+
+def _scan_inputs(b, l, d, n):
+    da = RNG.uniform(0.7, 0.999, (b, l, d, n)).astype(np.float32)
+    return da, _np((b, l, d, n), 0.1), _np((b, l, n)), _np((b, d, n), 0.1)
 
 
 def _fused_inputs(dims):
@@ -144,3 +183,83 @@ def test_flash_decode_kernel_matches_plain(cuda, qshape, skv, lengths, bkv):
     assert fa.launches == before + 1
     torch.testing.assert_close(got, want, rtol=2e-4,
                                atol=2e-4 * qshape[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,d,lengths,m_out,k_out,n_out",
+                         PROJ_CASES + [
+    (4, 1, 16, 256, (16, 1, 9, 5), 1, 4096, 3072),   # the main path's
+    (4, 16, 16, 256, (16, 1, 9, 5), 1, 4096, 3072),  # 16 query rows
+    (3, 8, 20, 1024, (20, 3, 11), 2, 700, 64),       # one request a group
+])
+def test_flash_decode_proj_kernel_matches_plain(cuda, b, sq, skv, d, lengths,
+                                                m_out, k_out, n_out):
+    q, k, v, wo = (_t(a, cuda) for a in _proj_inputs(b, sq, skv, d, k_out,
+                                                      n_out))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = fa.proj_launches
+    got = ops.flash_decode_proj(q, k, v, wo, lens, m_out=m_out, k_out=k_out)
+    want = ref.flash_decode_proj_ref(q, k, v, lens, wo, m_out=m_out,
+                                     k_out=k_out)
+    torch.cuda.synchronize()
+    assert fa.proj_launches == before + 1
+    assert got.shape == (b, m_out, n_out)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * k_out)
+    if 0 in lengths:            # a fully masked request projects zeros
+        assert not got[list(lengths).index(0)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                             (torch.bfloat16, 2e-2, 2e-1)])
+@pytest.mark.parametrize("b,s,h,d,causal", ATTN_CASES + [
+    (1, 200, 2, 256, True),                  # gemma-7b's head_dim
+    (1, 70, 1, 20, False),                   # head_dim off the 32 grid
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, d, causal,
+                                              dtype, rtol, atol):
+    q, k, v = (_t(a, cuda).to(dtype) for a in _attn_inputs(b, s, h, d))
+    before = fa.attention_launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    fold = [x.transpose(1, 2).reshape(b * h, s, d) for x in (q, k, v)]
+    want = ref.flash_attention_ref(*fold, causal=causal)
+    want = want.reshape(b, h, s, d).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert fa.attention_launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_masks_blockaligned_padded_kv(cuda):
+    """A block-aligned kv_len shorter than the buffer still masks every
+    padded key: poisoned padding must not leak into the output."""
+    bh, s, d, real_kv = 2, 64, 32, 64
+    q = _t(_np((bh, s, d), 0.3), cuda)
+    k, v = _t(_np((bh, real_kv, d), 0.3), cuda), _t(_np((bh, real_kv, d)),
+                                                     cuda)
+    poison = torch.full((bh, 64, d), 100.0, device=cuda)
+    got = fa.flash_attention(q, torch.cat([k, poison], 1),
+                             torch.cat([v, poison], 1), causal=False,
+                             kv_len=real_kv)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,n", SCAN_CASES + [
+    (1, 37, 33, 16),                         # ragged L and channel block
+    (2, 40, 24, 3),                          # N padded to 4
+])
+def test_mamba_scan_kernel_matches_plain(cuda, b, l, d, n):
+    da, dbx, c, h0 = (_t(a, cuda) for a in _scan_inputs(b, l, d, n))
+    before = ms.launches
+    y, h = ops.mamba_scan(da, dbx, c, h0)
+    y_ref, h_ref = ref.mamba_scan_ref(da, dbx, c, h0)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+    # the state is a rounded multiply then a rounded add in both
+    # versions: bit-equal; y differs only in its sum order over n
+    assert torch.equal(h, h_ref)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4 * n)

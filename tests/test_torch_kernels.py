@@ -8,15 +8,21 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda import (DECODE_CASES, FUSED_CASES, NEST_CASES,
-                             _decode_inputs, _fused_inputs, _np, _t)
+from test_torch_cuda import (ATTN_CASES, DECODE_CASES, FUSED_CASES,
+                             NEST_CASES, PROJ_CASES, SCAN_CASES,
+                             _attn_inputs, _decode_inputs, _fused_inputs,
+                             _np, _proj_inputs, _scan_inputs, _t)
 
+import jax.numpy as jnp
+
+from repro.kernels import flash_attention as jfa
 from repro.kernels import fused_chain as jfc
 from repro.kernels import nest_gemm as jng
 from repro.kernels import ops as jops
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_chain as fc
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import nest_gemm as ng
 
 # ---------------------------------------------------------------------------
@@ -59,6 +65,112 @@ def test_flash_decode_plain_matches_pallas(qshape, skv, lengths, bkv):
                                atol=2e-4 * qshape[2])
     if 0 in lengths:            # a fully masked request contributes p = 0
         assert not got[list(lengths).index(0)].any()
+
+
+@pytest.mark.parametrize("b,sq,skv,d,lengths,m_out,k_out,n_out",
+                         PROJ_CASES)
+def test_flash_decode_proj_plain_matches_pallas(b, sq, skv, d, lengths,
+                                                m_out, k_out, n_out):
+    q, k, v, wo = _proj_inputs(b, sq, skv, d, k_out, n_out)
+    lens = np.asarray(lengths, np.int32)
+    want = np.asarray(jops.flash_decode_proj(q, k, v, wo, lens,
+                                             m_out=m_out, k_out=k_out,
+                                             interpret=True))
+    got = ops.flash_decode_proj(_t(q), _t(k), _t(v), _t(wo), lens,
+                                m_out=m_out, k_out=k_out).numpy()
+    assert got.shape == want.shape == (b, m_out, n_out)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _from_jnp(x, dtype):
+    """The exact values of a (possibly bf16) JAX array as a torch tensor."""
+    return torch.from_numpy(np.array(x, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 2e-5, 2e-4),
+                                             ("bfloat16", 2e-2, 2e-1)])
+@pytest.mark.parametrize("b,s,h,d,causal", ATTN_CASES)
+def test_flash_attention_plain_matches_pallas(b, s, h, d, causal, dtype,
+                                              rtol, atol):
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype))
+                  for a in _attn_inputs(b, s, h, d))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           interpret=True), np.float32)
+    tq, tk, tv = (_from_jnp(x, getattr(torch, dtype)) for x in (jq, jk, jv))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == getattr(torch, dtype) and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("s,sk,d", [(5, 37, 16), (64, 200, 32),
+                                    (33, 2, 64), (96, 130, 16)])
+def test_flash_attention_noncausal_padded_kv_plain_matches_pallas(s, sk, d):
+    """Cross-attention with a key length off the block grid: the padded
+    keys are masked through ``kv_len``."""
+    q, k, v = _attn_inputs(1, s, 2, d, sk)
+    want = np.asarray(jops.flash_attention(q, k, v, causal=False,
+                                           interpret=True))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=False).numpy()
+    assert got.shape == want.shape == (1, s, 2, d)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_blockaligned_kv_len_plain_matches_pallas():
+    """A block-aligned kv_len shorter than the padded buffer: poisoned
+    padding leaks into neither version."""
+    bh, s, d, real_kv = 2, 64, 32, 64
+    q, k, v = _np((bh, s, d), 0.3), _np((bh, real_kv, d), 0.3), \
+        _np((bh, real_kv, d))
+    poison = np.full((bh, 64, d), 100.0, np.float32)
+    k_pad, v_pad = (np.concatenate([x, poison], 1) for x in (k, v))
+    want = np.asarray(jfa.flash_attention(q, k_pad, v_pad, causal=False,
+                                          bq=32, bkv=64, kv_len=real_kv,
+                                          interpret=True))
+    got = ref.flash_attention_ref(_t(q), _t(k_pad), _t(v_pad),
+                                  causal=False, bq=32, bkv=64,
+                                  kv_len=real_kv).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    clean = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=False,
+                                    bq=32, bkv=64).numpy()
+    np.testing.assert_allclose(got, clean, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("b,l,d,n", SCAN_CASES)
+def test_mamba_scan_plain_matches_pallas(b, l, d, n):
+    da, dbx, c, h0 = _scan_inputs(b, l, d, n)
+    y_want, h_want = jops.mamba_scan(da, dbx, c, h0, interpret=True)
+    y, h = ops.mamba_scan(_t(da), _t(dbx), _t(c), _t(h0))
+    assert y.shape == (b, l, d) and h.shape == (b, d, n)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_new_kernel_launchers_refuse_cpu_tensors():
+    """The three kernels of this slice never fall back either."""
+    before = (fa.proj_launches, fa.attention_launches, ms.launches)
+    q, lens = torch.ones(1, 1, 4), torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_decode_proj(q, q, q, lens, torch.ones(4, 2), m_out=1,
+                             k_out=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, q, q)
+    x = torch.ones(1, 2, 3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan(x, x, torch.ones(1, 2, 4), torch.ones(1, 3, 4))
+    assert (fa.proj_launches, fa.attention_launches, ms.launches) == before
+
+
+def test_flash_decode_proj_shared_memory_groups():
+    """The wrapper keeps every request's context in shared memory when
+    they fit and takes them in groups when not; one that cannot fit at
+    all is refused before any launch."""
+    assert fa.proj_group(4, 16, 256, 256) == 4       # the main path
+    assert fa.proj_group(3, 8, 1024, 1024) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.proj_group(1, 64, 1024, 1024)
 
 
 def test_activation_registries_agree_with_jax():

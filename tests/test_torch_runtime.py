@@ -283,3 +283,115 @@ def test_host_glue_equals_reference(cells):
             assert np.array_equal(tin[name].numpy(), jin[name]), name
     for name in jpool.arenas:
         assert np.array_equal(tpool.arenas[name], jpool.arenas[name])
+
+
+# ---------------------------------------------------------------------------
+# block-fused decode attention: one launch, equal to the JAX backend's
+# ---------------------------------------------------------------------------
+
+def _attention_proj_inputs(dec, bucket):
+    plan = dec.batch_plan(bucket)
+    bseg = next(s for s in plan.segments if s.kind == "attention")
+    nxt = dec.steps[bseg.indices[-1] + 1]
+    assert nxt.input_mode == "adapt"
+    g = nxt.op.gemm                      # the wo step's adapt geometry
+    qk, pv = bseg.programs
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((bucket, qk.gemm.m, qk.gemm.k)).astype(
+        np.float32)
+    kT = rng.standard_normal((bucket, qk.gemm.k, qk.gemm.n)).astype(
+        np.float32)
+    v = rng.standard_normal((bucket, pv.gemm.k, pv.gemm.n)).astype(
+        np.float32)
+    wo = rng.standard_normal((g.k, g.n)).astype(np.float32)
+    return bseg.programs, q, kT, v, wo, g
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_batched_attention_proj_one_launch_matches_reference(cells, ragged):
+    """attention + Wo for the whole batch is ONE launch on the CUDA
+    backend (the plain versions here), equal to the JAX Pallas backend's
+    and to the base oracle (attention launch + adapt + GEMM)."""
+    from repro_torch.backends import Backend
+    from repro_torch.obs.metrics import REGISTRY
+    (_, jdec), (_, tdec) = cells
+    progs_t, q, kT, v, wo, g = _attention_proj_inputs(tdec, 3)
+    progs_j = _attention_proj_inputs(jdec, 3)[0]
+    lengths = (np.array([kT.shape[2], 3, 7], np.int32) if ragged
+               else None)
+    want = jdec.make_backend("pallas").run_batched_attention_proj(
+        progs_j, q, kT, v, wo, m_out=g.m, k_out=g.k, lengths=lengths)
+    be = tdec.make_backend("cuda", device="cpu")
+    counter = REGISTRY.counter("backend_launches_total")
+    c0 = counter.value(kernel="flash_decode_proj")
+    l0 = be.n_launches
+    got = be.run_batched_attention_proj(progs_t, q, kT, v, wo, m_out=g.m,
+                                        k_out=g.k, lengths=lengths)
+    assert be.n_launches - l0 == 1
+    assert counter.value(kernel="flash_decode_proj") - c0 == 1
+    assert got.shape == (3, g.m, g.n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    oracle = Backend.run_batched_attention_proj(
+        be, progs_t, q, kT, v, wo, m_out=g.m, k_out=g.k, lengths=lengths)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=2e-4,
+                               atol=2e-4 * g.k)
+
+
+def test_faulty_backend_guards_attention_proj(cells):
+    from repro_torch.faults import (FaultEvent, FaultInjector, FaultPlan,
+                                    TransientLaunchError, check_finite)
+    _, (_, tdec) = cells
+    progs, q, kT, v, wo, g = _attention_proj_inputs(tdec, 2)
+    inj = FaultInjector(FaultPlan(events=(
+        FaultEvent(kind="launch_transient", at_tick=1),
+        FaultEvent(kind="launch_nan", at_tick=2))))
+    fb = inj.wrap(tdec.make_backend("cuda", device="cpu"))
+
+    def launch():
+        return fb.run_batched_attention_proj(progs, q, kT, v, wo,
+                                             m_out=g.m, k_out=g.k)
+    inj.begin_tick(1)
+    with pytest.raises(TransientLaunchError):
+        launch()
+    inj.begin_tick(2)
+    assert not check_finite(launch())      # NaN-poisoned copy
+    inj.begin_tick(3)
+    assert check_finite(launch())
+    assert fb.n_launches == 2              # the transient never launched
+    assert inj.injected == {"launch_transient": 1, "launch_nan": 1}
+
+
+# ---------------------------------------------------------------------------
+# the joint segment search: the frontier the autotuner measures
+# ---------------------------------------------------------------------------
+
+def _fused_runs(ex):
+    runs = [(list(s.fused.programs), tuple(s.fused.adapts))
+            for s in ex.segments if s.fused is not None]
+    runs += [(list(b.fused.programs), tuple(b.fused.adapts))
+             for n in (1, 2, 3, 5) for b in ex.batch_plan(n).segments
+             if b.fused is not None]
+    return runs
+
+
+def test_frontier_points_match_reference(cells):
+    """Every fused segment of the reduced cells has the reference's
+    Pareto frontier: the same (bm, layer_bks) points at the same cycles,
+    traffic and on-chip bytes, in the same order."""
+    (jpre, jdec), (tpre, tdec) = cells
+    n_runs = 0
+    for jex, tex in ((jpre, tpre), (jdec, tdec)):
+        jruns, truns = _fused_runs(jex), _fused_runs(tex)
+        assert len(jruns) == len(truns) > 0
+        for (jprogs, jad), (tprogs, tad) in zip(jruns, truns):
+            assert jad == tad
+            jf = jex.cache.frontier(jprogs, adapts=jad)
+            tf = tex.cache.frontier(tprogs, adapts=tad)
+            assert [(p.choice.bm, p.choice.layer_bks, p.cycles,
+                     p.traffic_bytes, p.vmem_bytes) for p in tf.points] \
+                == [(p.choice.bm, p.choice.layer_bks, p.cycles,
+                     p.traffic_bytes, p.vmem_bytes) for p in jf.points]
+            assert (tf.n_enumerated, tf.n_feasible) == \
+                (jf.n_enumerated, jf.n_feasible)
+            n_runs += 1
+    assert n_runs >= 3
