@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; no phase catches its own):
      shapes its path gives it, with times (median, min and max of the
      reps) beside the least time the card could take (bound) and one
      PyTorch library call (yardstick); the card's clocks are read before,
-     during and after;
+     during and after.  nest_gemm's shapes are totalled per decode tick
+     and per prefill pass, and the rows of M = 16 and M = 32 launches are
+     held bit-equal to the same rows at M = 1; each fused_chain case
+     prints its plan (clusters x ranks, placement, shared memory);
   3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
      heads at 4096 tokens and ``ops.mamba_scan`` at falcon-mamba-7b's
      width, bit-equal to the kernels checked in phase 2;
@@ -28,12 +31,18 @@ Phases (any failure exits non-zero; no phase catches its own):
      equal to the untuned serve's, and no segment legal to tune at full
      width.
 
+``--baseline CSRC_DIR`` also builds an earlier nest_gemm.cu and
+fused_chain.cu from CSRC_DIR (their one-block-per-M-block interfaces)
+and holds every prefill nest_gemm shape and every fused_chain case
+against them bit for bit, timed beside the kernels.
+
 Ends with the ``kernels`` JSON line, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -174,30 +183,40 @@ def counts() -> dict:
 def nest_gemm_shapes(decode, prefill, bucket: int) -> list[tuple]:
     """Distinct (M, K, N, out_block_t, act, bk) the decode plan at
     ``bucket`` and a prefill pass launch on nest_gemm, with how many
-    times one decode tick launches each."""
-    shapes: dict[tuple, int] = {}
+    times one decode tick and one prefill pass launch each."""
+    shapes: dict[tuple, list[int]] = {}
+
+    def add(prog, tick: int, pas: int) -> None:
+        comp = compile_program(prog)
+        g = prog.gemm
+        key = (g.m, g.k, g.n, comp.out_block_t, comp.fused_act, comp.bk)
+        n = shapes.setdefault(key, [0, 0])
+        n[0] += tick
+        n[1] += pas
+
     for seg in decode.batch_plan(bucket).segments:
         if seg.kind != "static" or seg.fused is not None:
             continue
         for prog in seg.programs:
-            comp = compile_program(prog)
-            g = prog.gemm
-            key = (g.m, g.k, g.n, comp.out_block_t, comp.fused_act, comp.bk)
-            shapes[key] = shapes.get(key, 0) + 1
+            add(prog, 1, 0)
     for step in prefill.steps:
-        comp = compile_program(step.program)
-        g = step.program.gemm
-        shapes.setdefault((g.m, g.k, g.n, comp.out_block_t, comp.fused_act,
-                           comp.bk), 0)
-    return [(*key, n) for key, n in shapes.items()]
+        add(step.program, 0, 1)
+    return [(*key, *n) for key, n in shapes.items()]
 
 
-def check_nest_gemm(shapes, timer, gen) -> dict:
-    log("K1 nest_gemm: M K N out_t act | launches/tick | max_err | "
-        "ms [min..max] plain_ms library_ms bound_ms | reps")
-    tot = {"ms": 0.0, "ms_min": 0.0, "ms_max": 0.0, "plain_ms": 0.0,
-           "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
-    for m, k, n, out_t, act, bk, per_tick in shapes:
+def _total() -> dict:
+    return {"ms": 0.0, "ms_min": 0.0, "ms_max": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+
+
+def check_nest_gemm(shapes, timer, gen, baseline=None) -> tuple[dict, dict]:
+    """Every shape against the plain version, timed; returns the decode
+    tick's total and one prefill pass's total.  With a baseline, the
+    prefill shapes (M > 8) are also held bit-equal to it and timed."""
+    log("K1 nest_gemm: M K N out_t act | launches/tick launches/prefill | "
+        "max_err | ms [min..max] plain_ms library_ms bound_ms | reps")
+    tick, pre = _total(), _total()
+    for m, k, n, out_t, act, bk, per_tick, per_pass in shapes:
         # unit-normal X and W: outputs of RMS sqrt(k), against an atol of
         # 2e-4*k (0.031 of the RMS at the widest K, 24576)
         x = torch.randn(m, k, device="cuda", generator=gen)
@@ -213,19 +232,56 @@ def check_nest_gemm(shapes, timer, gen) -> dict:
                     else (lambda: torch.matmul(x, w)))
         nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * k * n
         b_ms, b_by = bound(nbytes, flops)
-        log(f"  {m} {k} {n} {out_t} {act} | {per_tick} | {err:.3g} | "
-            f"{spread(ms)} {plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.4f} "
-            f"({b_by}) | {[round(r, 4) for r in ms['reps']]}")
+        log(f"  {m} {k} {n} {out_t} {act} | {per_tick} {per_pass} | "
+            f"{err:.3g} | {spread(ms)} {plain['ms']:.4f} {lib['ms']:.4f} "
+            f"{b_ms:.4f} ({b_by}) | {[round(r, 4) for r in ms['reps']]}")
+        if baseline is not None and m > 8:
+            kw = dict(out_block_t=out_t, act=act)
+            same = torch.equal(got, baseline.nest_gemm(x, w, **kw))
+            base = timer(lambda: baseline.nest_gemm(x, w, **kw))
+            again = timer(lambda: ng.nest_gemm(x, w, **kw))
+            log(f"    baseline {spread(base)}, bit-equal {same}; kernel "
+                f"again {spread(again)}")
         del got, want
-        if per_tick:
+        for tot, count in ((tick, per_tick), (pre, per_pass)):
             for key, val in (("ms", ms["ms"]), ("ms_min", ms["ms_min"]),
                              ("ms_max", ms["ms_max"]),
                              ("plain_ms", plain["ms"]),
                              ("library_ms", lib["ms"]), ("bytes", nbytes),
                              ("flops", flops)):
-                tot[key] += per_tick * val
-        tot["err"] = max(tot["err"], err)
-    return tot
+                tot[key] += count * val
+            if count:
+                tot["err"] = max(tot["err"], err)
+    for label, tot in (("decode tick", tick), ("prefill pass", pre)):
+        b_ms, b_by = bound(tot["bytes"], tot["flops"])
+        log(f"K1 nest_gemm {label} total: {tot['ms']:.4f} "
+            f"[{tot['ms_min']:.4f}..{tot['ms_max']:.4f}] ms, library "
+            f"{tot['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}), plain "
+            f"{tot['plain_ms']:.4f}")
+    return tick, pre
+
+
+def check_rows_alone(shapes, gen) -> None:
+    """The rows of an M = 16 and an M = 32 launch are bit-equal to the
+    same rows launched one at a time (M = 1), at lm_head's and
+    mlp.down's prefill shapes: the K order depends on K alone."""
+    for m, k, n, out_t, act, *_ in shapes:
+        if m != 32 or (k, n) not in ((3072, 256000), (24576, 3072)):
+            continue
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        w = torch.randn(k, n, device="cuda", generator=gen)
+        alone = torch.cat([ng.nest_gemm(x[i:i + 1].contiguous(), w,
+                                        act=act) for i in range(m)])
+        for rows in (16, 32):
+            got = ng.nest_gemm(x[:rows].contiguous(), w, out_block_t=out_t,
+                               act=act)
+            got = got.t() if out_t else got
+            assert torch.equal(got, alone[:rows]), \
+                (m, k, n, rows, float((got - alone[:rows]).abs().max()))
+        log(f"K1 nest_gemm ({k}, {n}): rows of M = 16 and M = 32 launches "
+            f"torch.equal to the same rows at M = 1")
+        del x, w, alone, got
+    torch.cuda.empty_cache()
 
 
 def check_flash_decode(timer, gen) -> dict:
@@ -255,8 +311,9 @@ def check_flash_decode(timer, gen) -> dict:
 
 def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
     """(label, dims, bm, bks, acts, adapts): the reduced cell's fused
-    segments plus synthetic ones with an adapt, the row-wise acts, and a
-    slab too large for shared memory."""
+    segments, synthetic ones with an adapt and the row-wise acts and with
+    a 64-row slab, and the bucket-8 prefill plan's greedy geometry (256
+    rows), whose slab fits no block: every placement the plan has."""
     cases = []
     segs = [("decode@%d" % bucket, s.fused)
             for s in decode.batch_plan(bucket).segments
@@ -272,29 +329,97 @@ def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
                   (32, 64, 32, 16), (None, "softmax", "rmsnorm",
                                      "layernorm"),
                   (False, True, False, False)))
-    cases.append(("synthetic global-scratch",
+    cases.append(("synthetic 64-row",
                   ((64, 256, 512), (64, 512, 512), (64, 512, 128)), 64,
                   (128, 128, 128), ("relu", "gelu", "silu"),
                   (False, False, False)))
+    seg = next(s.fused for s in prefill.batch_plan(8).segments
+               if s.fused is not None and len(s.fused.programs) == 3)
+    comp = compile_segment(seg)
+    cases.append(("prefill@8 greedy", comp.dims, comp.bm, comp.layer_bks,
+                  comp.acts, comp.adapts))
     return cases
 
 
-def check_fused_chain(cases, timer, gen) -> dict:
-    log("K2 fused_chain: case | dims | placement | max_err | ms [min..max] "
-        "plain_ms library_ms bound_ms")
+class Baseline:
+    """Earlier ``nest_gemm.cu`` and ``fused_chain.cu`` from directory
+    ``src`` -- nest_gemm with the (x, w, o, M, K, N, out_t, act, stream)
+    C interface, fused_chain with one block per M block (x, ws, dims, bks,
+    acts, adapts, n_layers, out, scratch, n_blocks, bm, k_slab, n_max,
+    m_out, use_smem, stream) -- built with the same flags, to hold the
+    kernels against bit for bit and time beside them."""
+
+    SMEM_LIMIT = 200 * 1024
+
+    def __init__(self, src: str):
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        libs, procs = {}, []
+        for name in ("nest_gemm", "fused_chain"):
+            libs[name] = os.path.join(build.BUILD_DIR,
+                                      f"libbaseline_{name}.so")
+            procs.append(subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", libs[name],
+                 os.path.join(src, f"{name}.cu")],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+        assert all(p.wait() == 0 for p in procs), "baseline build failed"
+        ng_fn = ctypes.CDLL(libs["nest_gemm"]).nest_gemm_f32
+        ng_fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
+        ng_fn.restype = ctypes.c_int
+        fc_fn = ctypes.CDLL(libs["fused_chain"]).fused_chain_f32
+        fc_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                          + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                          + [ctypes.c_void_p])
+        fc_fn.restype = ctypes.c_int
+        self.ng_fn, self.fc_fn = ng_fn, fc_fn
+
+    def nest_gemm(self, x, w, *, out_block_t, act):
+        m, k = x.shape
+        n = w.shape[1]
+        out = torch.empty((n, m) if out_block_t else (m, n), device=x.device)
+        err = self.ng_fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                         int(out_block_t), ng.ACT_CODES[act],
+                         build.stream_handle())
+        build.raise_on_error(err, "baseline nest_gemm")
+        return out
+
+    def fused_chain(self, x, ws, *, bm, bks, acts, adapts, dims):
+        n = len(ws)
+        bm, n_m, bks, k_slab, n_max = fc.geometry(dims, bm, bks, adapts)
+        use_smem = 4 * bm * (k_slab + n_max) <= self.SMEM_LIMIT
+        m_out, n_out = dims[-1][0], dims[-1][2]
+        out = torch.empty((m_out, n_out), device=x.device)
+        scratch = torch.empty(0 if use_smem else n_m * bm * (k_slab + n_max),
+                              device=x.device)
+        flat = [v for d in dims for v in d]
+        err = self.fc_fn(
+            x.data_ptr(), (ctypes.c_void_p * n)(*[w.data_ptr() for w in ws]),
+            (ctypes.c_int * len(flat))(*flat), (ctypes.c_int * n)(*bks),
+            (ctypes.c_int * n)(*[fc.ACT_CODES[a] for a in acts]),
+            (ctypes.c_int * n)(*[int(bool(a)) for a in adapts]), n,
+            out.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+            n_m, bm, k_slab, n_max, m_out, int(use_smem),
+            build.stream_handle())
+        build.raise_on_error(err, "baseline fused_chain")
+        return out
+
+
+def check_fused_chain(cases, timer, gen, baseline=None) -> dict:
+    log("K2 fused_chain: case | dims | cluster placement smem_KB | max_err "
+        "| ms [min..max] plain_ms library_ms bound_ms"
+        + (" | baseline_ms bit-equal" if baseline else ""))
     main = None
     for label, dims, bm, bks, acts, adapts in cases:
         x = torch.randn(*dims[0][:2], device="cuda", generator=gen)
         ws = [torch.randn(d[1], d[2], device="cuda", generator=gen)
               for d in dims]
-        got = fc.fused_chain(x, ws, bm=bm, bks=bks, acts=acts,
-                             adapts=adapts, dims=dims)
+        kw = dict(bm=bm, bks=bks, acts=acts, adapts=adapts, dims=dims)
+        got = fc.fused_chain(x, ws, **kw)
         want = ref.fused_chain_ref(x, ws, bks=bks, acts=acts, adapts=adapts,
                                    dims=dims)
         err = check(f"fused_chain {label}", got, want,
                     max(d[1] for d in dims))
-        ms = timer(lambda: fc.fused_chain(x, ws, bm=bm, bks=bks, acts=acts,
-                                          adapts=adapts, dims=dims))
+        ms = timer(lambda: fc.fused_chain(x, ws, **kw))
         plain = timer(lambda: ref.fused_chain_ref(
             x, ws, bks=bks, acts=acts, adapts=adapts, dims=dims))
 
@@ -314,10 +439,18 @@ def check_fused_chain(cases, timer, gen) -> dict:
                         + dims[-1][0] * dims[-1][2])
         flops = sum(2.0 * d[0] * d[1] * d[2] for d in dims)
         b_ms, _ = bound(nbytes, flops)
-        bm_, _, _, k_slab, n_max = fc.geometry(dims, bm, bks, adapts)
-        where = fc.placement(bm_, k_slab, n_max)
-        log(f"  {label} | {dims} | {where} | {err:.3g} | {spread(ms)} "
-            f"{plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.6f}")
+        p = fc.plan(dims, bm, bks, adapts, acts)
+        extra = ""
+        if baseline is not None:
+            old = baseline.fused_chain(x, ws, **kw)
+            base = timer(lambda: baseline.fused_chain(x, ws, **kw))
+            again = timer(lambda: fc.fused_chain(x, ws, **kw))
+            extra = (f" | {spread(base)} {torch.equal(got, old)} (kernel "
+                     f"again {spread(again)}, max |diff| "
+                     f"{float((got - old).abs().max()):.3g})")
+        log(f"  {label} | {dims} bm {p.bm} | {p.n_m}x{p.cs} {p.placement} "
+            f"{p.smem_bytes / 1024:.1f} | {err:.3g} | {spread(ms)} "
+            f"{plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.6f}{extra}")
         row = row_stats(ms, plain, lib, nbytes, flops, err)
         if main is None:          # the decode tick's fused segment
             main = row
@@ -507,6 +640,10 @@ def full_width(gen) -> dict:
     assert rep.launches_per_decode_tick == per_tick, \
         rep.launches_per_decode_tick
     assert launched["nest_gemm"] > 0 and launched["flash_decode"] > 0
+    n_prefill = launched["nest_gemm"] - rep.decode_ticks * (per_tick - 1)
+    log(f"full width: {n_prefill} prefill nest_gemm launches in the serve "
+        f"({launched['nest_gemm'] - n_prefill} in {rep.decode_ticks} decode "
+        f"ticks)")
     sums2, rep2 = serve(sched, requests)     # the same serve, repeated
     assert sums == sums2, (sums, sums2)
     s = rep.summary()
@@ -719,7 +856,13 @@ def autotune_phase(untuned_sums: dict, fw_cells) -> dict:
     return launched
 
 
-def main() -> int:
+def main(argv) -> int:
+    baseline = None
+    if argv[:1] == ["--baseline"] and len(argv) == 2:
+        baseline = argv[1]
+    elif argv:
+        print("usage: chip_smoke.py [--baseline CSRC_DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -750,7 +893,10 @@ def main() -> int:
                                       cache=cache, reduce_model=False)
     fw_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
                                       cache=cache, reduce_model=False)
-    k1 = check_nest_gemm(nest_gemm_shapes(fw_dec, fw_pre, 4), timer, gen)
+    shapes = nest_gemm_shapes(fw_dec, fw_pre, 4)
+    base = Baseline(baseline) if baseline else None
+    k1, _ = check_nest_gemm(shapes, timer, gen, base)
+    check_rows_alone(shapes, gen)
     clocks("after nest_gemm")
     k3 = check_flash_decode(timer, gen)
     rcache = ProgramCache()
@@ -758,7 +904,7 @@ def main() -> int:
                                      feather_config(4, 16), cache=rcache)
     r_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny",
                                      feather_config(4, 16), cache=rcache)
-    k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen)
+    k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen, base)
     k4 = check_flash_decode_proj(fw_dec, timer, gen)
     k5, attn = check_flash_attention(timer, gen)
     k6, scan = check_mamba_scan(timer, gen)
@@ -807,4 +953,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

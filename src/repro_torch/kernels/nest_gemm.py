@@ -26,18 +26,24 @@ ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 #: kernel launches since the count was last set to 0
 launches = 0
 
-_FN = None
+_FNS = None
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = build.load("nest_gemm").nest_gemm_f32
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
+def _fns():
+    """The launch and the scratch size it needs."""
+    global _FNS
+    if _FNS is None:
+        lib = build.load("nest_gemm")
+        fn = lib.nest_gemm_f32
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_longlong,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        size = lib.nest_gemm_scratch_floats
+        size.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        size.restype = ctypes.c_longlong
+        _FNS = fn, size
+    return _FNS
 
 
 def nest_gemm(x: torch.Tensor, w: torch.Tensor, *,
@@ -58,9 +64,14 @@ def nest_gemm(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"unknown activation {act!r}")
     out = torch.empty((n, m) if out_block_t else (m, n),
                       dtype=torch.float32, device=x.device)
+    fn, size = _fns()
+    n_scratch = size(m, k, n, w.data_ptr())
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                    int(out_block_t), ACT_CODES[act], build.stream_handle())
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                 int(out_block_t), ACT_CODES[act],
+                 scratch.data_ptr() if n_scratch else None, n_scratch,
+                 build.stream_handle())
     build.raise_on_error(err, "nest_gemm")
     launches += 1
     return out

@@ -47,6 +47,15 @@ NEST_CASES = [
     (32, 300, 24, False, "gelu"),
 ]
 
+# the row blocks of 16 and 32 (M > 8): every N path (16-column float4
+# strips, ragged N on scalar columns), the K of every main-path shape
+TALL_NEST_CASES = [
+    (16, 3072, 4096, True, None),
+    (31, 300, 8200, False, "gelu"),
+    (32, 24576, 3072, True, None),
+    (32, 1000, 24576, False, "silu"),
+]
+
 # (dims, bm, bks, acts, adapts): a two-block wired chain, head-split
 # adapts (shrink and cycle-growth) with the row-wise acts
 FUSED_CASES = [
@@ -58,6 +67,26 @@ FUSED_CASES = [
      ("gelu", "softmax"), (False, True)),
     (((6, 20, 36), (6, 36, 30)), 4, (7, 9),
      ("silu", "layernorm"), (False, False)),
+]
+
+# the reduced cell's decode@8 and prefill MLP segments, a layer width that
+# no cluster size divides (the last rank owns no column), an adapt and a
+# row-wise act on rows gathered across 8 ranks, a 64-row slab in shared
+# memory with the weights read from device memory, and the bucket-8
+# prefill plan's greedy geometry, whose slab fits no block
+CLUSTER_CASES = [
+    (((8, 64, 256), (8, 256, 64), (8, 64, 256)), 8, (10, 42, 10),
+     (None, "gelu", None), (False,) * 3),
+    (((32, 64, 256), (32, 256, 64), (32, 64, 256)), 32, (10, 42, 10),
+     (None, "gelu", None), (False,) * 3),
+    (((8, 40, 100), (8, 100, 52)), 8, (16, 24), ("relu", "rmsnorm"),
+     (False, False)),
+    (((8, 64, 96), (12, 64, 80), (12, 80, 40)), 8, (16, 32, 16),
+     ("gelu", "softmax", "layernorm"), (False, True, False)),
+    (((64, 256, 512), (64, 512, 512), (64, 512, 128)), 64, (128,) * 3,
+     ("relu", "gelu", "silu"), (False,) * 3),
+    (((256, 64, 256), (256, 256, 64), (256, 64, 256)), 256, (10, 42, 10),
+     (None, "gelu", None), (False,) * 3),
 ]
 
 # (q shape, skv, lengths, bkv)
@@ -122,7 +151,7 @@ def _decode_inputs(qshape, skv):
     (3, 96, 8200, True, "silu"),          # 32-column strips, ragged edge
     (8, 300, 16384, False, "relu"),
     (4, 24576, 3072, True, None),         # the widest K of the main path
-])
+] + TALL_NEST_CASES)
 def test_nest_gemm_kernel_matches_plain(cuda, m, k, n, out_t, act):
     # unit-normal W: outputs of RMS sqrt(k), far above the 2e-4*k atol
     x, w = _t(_np((m, k)), cuda), _t(_np((k, n)), cuda)
@@ -135,15 +164,16 @@ def test_nest_gemm_kernel_matches_plain(cuda, m, k, n, out_t, act):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4096, 24576])
+@pytest.mark.parametrize("n", [4096, 24576, 8200])
 def test_nest_gemm_kernel_rows_independent_of_batch(cuda, n):
-    """The spine invariant: a row's K sum does not depend on M, so the
-    rows of a stacked launch are bit-equal to the rows launched alone."""
+    """The spine invariant: a row's K sum does not depend on M or on the
+    row block (1 to 32 rows), so the rows of a stacked launch are
+    bit-equal to the rows launched alone."""
     k = 3072
-    x, w = _t(_np((8, k)), cuda), _t(_np((k, n), k ** -0.5), cuda)
+    x, w = _t(_np((32, k)), cuda), _t(_np((k, n), k ** -0.5), cuda)
     for out_t in (False, True):
         full = ng.nest_gemm(x, w, out_block_t=out_t, act="gelu")
-        for m in (1, 2, 4):
+        for m in (1, 2, 4, 8, 16, 24, 32):
             part = ng.nest_gemm(x[:m].contiguous(), w, out_block_t=out_t,
                                 act="gelu")
             want = full[:, :m] if out_t else full[:m]
@@ -151,10 +181,8 @@ def test_nest_gemm_kernel_rows_independent_of_batch(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,bm,bks,acts,adapts", FUSED_CASES + [
-    (((64, 256, 512), (64, 512, 512), (64, 512, 128)), 64, (128,) * 3,
-     ("relu", "gelu", "silu"), (False,) * 3),        # global scratch
-])
+@pytest.mark.parametrize("dims,bm,bks,acts,adapts",
+                         FUSED_CASES + CLUSTER_CASES)
 def test_fused_chain_kernel_matches_plain(cuda, dims, bm, bks, acts, adapts):
     x, ws = _fused_inputs(dims)
     x, ws = _t(x, cuda), [_t(w, cuda) for w in ws]

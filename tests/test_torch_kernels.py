@@ -4,12 +4,15 @@ inputs (rtol 2e-4, atol 2e-4 * k, the reference's ``cross_check``
 tolerance).  The CUDA kernels themselves are held against these plain
 versions on a card by ``test_torch_cuda.py``."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda import (ATTN_CASES, DECODE_CASES, FUSED_CASES,
-                             NEST_CASES, PROJ_CASES, SCAN_CASES,
+from test_torch_cuda import (ATTN_CASES, CLUSTER_CASES, DECODE_CASES,
+                             FUSED_CASES, NEST_CASES, PROJ_CASES, SCAN_CASES,
                              _attn_inputs, _decode_inputs, _fused_inputs,
                              _np, _proj_inputs, _scan_inputs, _t)
 
@@ -30,7 +33,11 @@ from repro_torch.kernels import nest_gemm as ng
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("bk", [16, 128])
-@pytest.mark.parametrize("m,k,n,out_t,act", NEST_CASES)
+@pytest.mark.parametrize("m,k,n,out_t,act", NEST_CASES + [
+    (16, 256, 100, False, "silu"),       # the row blocks of 16 and 32
+    (31, 129, 64, True, "relu"),
+    (32, 512, 256, True, None),
+])
 def test_nest_gemm_plain_matches_pallas(m, k, n, out_t, act, bk):
     x, w = _np((m, k)), _np((k, n), k ** -0.5)
     want = np.asarray(jops.nest_gemm(x, w, bk=bk, interpret=True,
@@ -41,7 +48,9 @@ def test_nest_gemm_plain_matches_pallas(m, k, n, out_t, act, bk):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4 * k)
 
 
-@pytest.mark.parametrize("dims,bm,bks,acts,adapts", FUSED_CASES)
+@pytest.mark.parametrize("dims,bm,bks,acts,adapts", FUSED_CASES + [
+    CLUSTER_CASES[4],                    # the 64-row synthetic chain
+])
 def test_fused_chain_plain_matches_pallas(dims, bm, bks, acts, adapts):
     x, ws = _fused_inputs(dims)
     want = np.asarray(jops.fused_chain(x, ws, bm=bm, bks=bks, acts=acts,
@@ -187,15 +196,111 @@ def test_activation_registries_agree_with_jax():
 
 def test_fused_geometry_matches_pallas_launch():
     """The kernel's (bm, blocks, K tiles, slab) geometry is the TPU
-    kernel's: adapts force one block of every row."""
+    kernel's: adapts force one M block of every row."""
     dims = ((16, 32, 48), (16, 48, 64), (16, 64, 24))
     assert fc.geometry(dims, 8, (16, 16, 32), (False,) * 3) \
         == (8, 2, (16, 16, 32), 64, 64)
     dims = ((4, 24, 32), (8, 16, 20), (8, 20, 12))
     assert fc.geometry(dims, 4, (8, 32, 8), (False, True, False)) \
         == (8, 1, (8, 16, 8), 24, 32)
-    assert fc.placement(8, 24, 32) == "shared"
-    assert fc.placement(64, 512, 512) == "global"
+    acts = (None, "softmax", None)
+    assert fc.placement(dims, 4, (8, 32, 8), (False, True, False),
+                        acts) == "shared"
+    dims, bks, acts = CLUSTER_CASES[4][:1] + CLUSTER_CASES[4][2:4]
+    assert fc.placement(dims, 64, bks, (False,) * 3, acts) == "shared-slab"
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 12, 16, 20, 52, 64, 100, 255, 256,
+                               512, 4097])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_fused_column_slices_partition_each_layer(n, cs):
+    """Every column of a layer belongs to exactly one rank, each rank's
+    columns are contiguous and in rank order, and the kernel's chunk
+    gives the same slices (c0 = min(n, r * chunk))."""
+    slices = fc.column_slices(n, cs)
+    assert len(slices) == cs
+    owner = [r for r, (c0, c1) in enumerate(slices) for _ in range(c0, c1)]
+    assert owner == sorted(owner) and len(owner) == n
+    assert all(c0 <= c1 for c0, c1 in slices)
+    assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(n))
+    chunk = fc.rank_chunk(n, cs)
+    assert chunk % 4 == 0 and chunk * cs >= n
+    for r, (c0, c1) in enumerate(slices):
+        assert c0 == min(n, r * chunk) and c1 - c0 == min(chunk, n - c0)
+
+
+def test_fused_cluster_size_follows_the_widest_layer():
+    """At least 16 columns of the widest layer a rank, up to 16 ranks
+    (the H100's largest cluster); the rows do not change it."""
+    assert [fc.cluster_size(n) for n in (1, 16, 17, 64, 96, 256, 512,
+                                         4096)] == [1, 1, 2, 4, 8, 16, 16, 16]
+    for dims, bm, bks, acts, adapts in FUSED_CASES + CLUSTER_CASES:
+        p = fc.plan(dims, bm, bks, adapts, acts)
+        assert p.cs == fc.cluster_size(max(d[2] for d in dims))
+        assert p.chunks == tuple(fc.rank_chunk(d[2], p.cs) for d in dims)
+
+
+def _smoke_fused_cases():
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import fused_cases
+    from repro_torch.configs.feather import feather_config
+    from repro_torch.runtime import ModelExecutable, ProgramCache
+    cache = ProgramCache()
+    pre, dec = (ModelExecutable.for_cell("gemma-7b", shape,
+                                         feather_config(4, 16), cache=cache)
+                for shape in ("prefill_tiny", "decode_tiny"))
+    return fused_cases(dec, pre, 4)
+
+
+def test_fused_plans_of_the_smoke_cases():
+    """Each fused_chain case of chip_smoke.py gets the plan its design
+    says: the reduced cell's segments and the synthetic adapt chain keep
+    weights and buffers in shared memory, the 64-row chain its buffers
+    only, and the 256-row prefill geometry a global scratch; every
+    placement is reached, and no block asks for more than 227 KB."""
+    want = {"decode@4": "shared", "prefill": "shared",
+            "synthetic adapt+row-wise": "shared",
+            "synthetic 64-row": "shared-slab", "prefill@8 greedy": "global"}
+    seen = set()
+    for label, dims, bm, bks, acts, adapts in _smoke_fused_cases():
+        p = fc.plan(dims, bm, bks, adapts, acts)
+        assert p.placement == want[label], (label, p)
+        assert p.smem_bytes <= fc.SMEM_LIMIT == 227 * 1024
+        assert p.cs == 16 or label.startswith(("prefill", "synthetic"))
+        seen.add(p.placement)
+    assert seen == set(fc.PLACEMENTS)
+    assert {fc.plan(d, bm, bks, ad, acts).placement
+            for d, bm, bks, acts, ad in CLUSTER_CASES} == set(fc.PLACEMENTS)
+
+
+def test_fused_plan_buffers_hold_every_layer():
+    """A rank's slab holds the segment input and every later layer's
+    input, its rows buffer every layer that needs whole rows, its
+    accumulator every layer's slice, its weight stage every layer's slice
+    ("shared") or the largest ("shared-slab"), all on float4 boundaries."""
+    for dims, bm, bks, acts, adapts in FUSED_CASES + CLUSTER_CASES:
+        p = fc.plan(dims, bm, bks, adapts, acts)
+        assert p.slab_ld >= max(d[1] for d in dims)
+        for l, d in enumerate(dims):
+            gathers = acts[l] in fc.ROW_ACTS or (
+                l + 1 < len(dims) and adapts[l + 1])
+            assert not gathers or p.rows_ld >= d[2]
+            assert p.acc_ld >= p.chunks[l]
+        slices = [d[1] * c for d, c in zip(dims, p.chunks)]
+        if p.placement == "shared":
+            assert p.stage_floats == sum(slices)
+            assert list(p.w_offs) == [sum(slices[:l])
+                                      for l in range(len(dims))]
+        else:
+            assert set(p.w_offs) == {0}
+            assert p.stage_floats == (max(slices)
+                                      if p.placement == "shared-slab" else 0)
+        ints = p.ints(dims[-1][0])
+        assert all(v % 4 == 0 for v in (p.slab_ld, p.rows_ld, p.acc_ld,
+                                        *ints[7:10], *p.w_offs))
+        assert ints[11] * 4 == (p.smem_bytes or 4 * p.rank_floats)
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
