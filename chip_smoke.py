@@ -31,18 +31,12 @@ Phases (any failure exits non-zero; no phase catches its own):
      equal to the untuned serve's, and no segment legal to tune at full
      width.
 
-``--baseline CSRC_DIR`` also builds an earlier nest_gemm.cu and
-fused_chain.cu from CSRC_DIR (their one-block-per-M-block interfaces)
-and holds every prefill nest_gemm shape and every fused_chain case
-against them bit for bit, timed beside the kernels.
-
 Ends with the ``kernels`` JSON line, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import statistics
@@ -209,13 +203,17 @@ def _total() -> dict:
             "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
 
 
-def check_nest_gemm(shapes, timer, gen, baseline=None) -> tuple[dict, dict]:
+def check_nest_gemm(shapes, timer, gen) -> tuple[dict, dict]:
     """Every shape against the plain version, timed; returns the decode
-    tick's total and one prefill pass's total.  With a baseline, the
-    prefill shapes (M > 8) are also held bit-equal to it and timed."""
-    log("K1 nest_gemm: M K N out_t act | launches/tick launches/prefill | "
-        "max_err | ms [min..max] plain_ms library_ms bound_ms | reps")
+    tick's total and one prefill pass's total.  A call on the wide-weight
+    path is two kernel launches (X laid out group-major, then the GEMM):
+    its time holds both, and the prefill pass's bound also counts the
+    relayout's bytes (X read, the group-major copy written)."""
+    log("K1 nest_gemm: M K N out_t act | calls/tick calls/prefill "
+        "launches/call | max_err | ms [min..max] plain_ms library_ms "
+        "bound_ms | reps")
     tick, pre = _total(), _total()
+    pre["relayout_bytes"] = 0.0
     for m, k, n, out_t, act, bk, per_tick, per_pass in shapes:
         # unit-normal X and W: outputs of RMS sqrt(k), against an atol of
         # 2e-4*k (0.031 of the RMS at the widest K, 24576)
@@ -232,16 +230,12 @@ def check_nest_gemm(shapes, timer, gen, baseline=None) -> tuple[dict, dict]:
                     else (lambda: torch.matmul(x, w)))
         nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * k * n
         b_ms, b_by = bound(nbytes, flops)
-        log(f"  {m} {k} {n} {out_t} {act} | {per_tick} {per_pass} | "
-            f"{err:.3g} | {spread(ms)} {plain['ms']:.4f} {lib['ms']:.4f} "
-            f"{b_ms:.4f} ({b_by}) | {[round(r, 4) for r in ms['reps']]}")
-        if baseline is not None and m > 8:
-            kw = dict(out_block_t=out_t, act=act)
-            same = torch.equal(got, baseline.nest_gemm(x, w, **kw))
-            base = timer(lambda: baseline.nest_gemm(x, w, **kw))
-            again = timer(lambda: ng.nest_gemm(x, w, **kw))
-            log(f"    baseline {spread(base)}, bit-equal {same}; kernel "
-                f"again {spread(again)}")
+        relayout = ng.scratch_floats(m, k, n, w.data_ptr())
+        log(f"  {m} {k} {n} {out_t} {act} | {per_tick} {per_pass} "
+            f"{2 if relayout else 1} | {err:.3g} | {spread(ms)} "
+            f"{plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.4f} ({b_by}) | "
+            f"{[round(r, 4) for r in ms['reps']]}")
+        pre["relayout_bytes"] += per_pass * 4.0 * (m * k + relayout)
         del got, want
         for tot, count in ((tick, per_tick), (pre, per_pass)):
             for key, val in (("ms", ms["ms"]), ("ms_min", ms["ms_min"]),
@@ -258,6 +252,9 @@ def check_nest_gemm(shapes, timer, gen, baseline=None) -> tuple[dict, dict]:
             f"[{tot['ms_min']:.4f}..{tot['ms_max']:.4f}] ms, library "
             f"{tot['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}), plain "
             f"{tot['plain_ms']:.4f}")
+    b_ms, b_by = bound(pre["bytes"] + pre["relayout_bytes"], pre["flops"])
+    log(f"K1 nest_gemm prefill pass bound with the X relayout's "
+        f"{pre['relayout_bytes'] / 1e6:.3f} MB: {b_ms:.4f} ({b_by})")
     return tick, pre
 
 
@@ -341,73 +338,9 @@ def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
     return cases
 
 
-class Baseline:
-    """Earlier ``nest_gemm.cu`` and ``fused_chain.cu`` from directory
-    ``src`` -- nest_gemm with the (x, w, o, M, K, N, out_t, act, stream)
-    C interface, fused_chain with one block per M block (x, ws, dims, bks,
-    acts, adapts, n_layers, out, scratch, n_blocks, bm, k_slab, n_max,
-    m_out, use_smem, stream) -- built with the same flags, to hold the
-    kernels against bit for bit and time beside them."""
-
-    SMEM_LIMIT = 200 * 1024
-
-    def __init__(self, src: str):
-        os.makedirs(build.BUILD_DIR, exist_ok=True)
-        libs, procs = {}, []
-        for name in ("nest_gemm", "fused_chain"):
-            libs[name] = os.path.join(build.BUILD_DIR,
-                                      f"libbaseline_{name}.so")
-            procs.append(subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", libs[name],
-                 os.path.join(src, f"{name}.cu")],
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
-        assert all(p.wait() == 0 for p in procs), "baseline build failed"
-        ng_fn = ctypes.CDLL(libs["nest_gemm"]).nest_gemm_f32
-        ng_fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                          + [ctypes.c_void_p])
-        ng_fn.restype = ctypes.c_int
-        fc_fn = ctypes.CDLL(libs["fused_chain"]).fused_chain_f32
-        fc_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                          + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                          + [ctypes.c_void_p])
-        fc_fn.restype = ctypes.c_int
-        self.ng_fn, self.fc_fn = ng_fn, fc_fn
-
-    def nest_gemm(self, x, w, *, out_block_t, act):
-        m, k = x.shape
-        n = w.shape[1]
-        out = torch.empty((n, m) if out_block_t else (m, n), device=x.device)
-        err = self.ng_fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                         int(out_block_t), ng.ACT_CODES[act],
-                         build.stream_handle())
-        build.raise_on_error(err, "baseline nest_gemm")
-        return out
-
-    def fused_chain(self, x, ws, *, bm, bks, acts, adapts, dims):
-        n = len(ws)
-        bm, n_m, bks, k_slab, n_max = fc.geometry(dims, bm, bks, adapts)
-        use_smem = 4 * bm * (k_slab + n_max) <= self.SMEM_LIMIT
-        m_out, n_out = dims[-1][0], dims[-1][2]
-        out = torch.empty((m_out, n_out), device=x.device)
-        scratch = torch.empty(0 if use_smem else n_m * bm * (k_slab + n_max),
-                              device=x.device)
-        flat = [v for d in dims for v in d]
-        err = self.fc_fn(
-            x.data_ptr(), (ctypes.c_void_p * n)(*[w.data_ptr() for w in ws]),
-            (ctypes.c_int * len(flat))(*flat), (ctypes.c_int * n)(*bks),
-            (ctypes.c_int * n)(*[fc.ACT_CODES[a] for a in acts]),
-            (ctypes.c_int * n)(*[int(bool(a)) for a in adapts]), n,
-            out.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
-            n_m, bm, k_slab, n_max, m_out, int(use_smem),
-            build.stream_handle())
-        build.raise_on_error(err, "baseline fused_chain")
-        return out
-
-
-def check_fused_chain(cases, timer, gen, baseline=None) -> dict:
+def check_fused_chain(cases, timer, gen) -> dict:
     log("K2 fused_chain: case | dims | cluster placement smem_KB | max_err "
-        "| ms [min..max] plain_ms library_ms bound_ms"
-        + (" | baseline_ms bit-equal" if baseline else ""))
+        "| ms [min..max] plain_ms library_ms bound_ms")
     main = None
     for label, dims, bm, bks, acts, adapts in cases:
         x = torch.randn(*dims[0][:2], device="cuda", generator=gen)
@@ -440,17 +373,9 @@ def check_fused_chain(cases, timer, gen, baseline=None) -> dict:
         flops = sum(2.0 * d[0] * d[1] * d[2] for d in dims)
         b_ms, _ = bound(nbytes, flops)
         p = fc.plan(dims, bm, bks, adapts, acts)
-        extra = ""
-        if baseline is not None:
-            old = baseline.fused_chain(x, ws, **kw)
-            base = timer(lambda: baseline.fused_chain(x, ws, **kw))
-            again = timer(lambda: fc.fused_chain(x, ws, **kw))
-            extra = (f" | {spread(base)} {torch.equal(got, old)} (kernel "
-                     f"again {spread(again)}, max |diff| "
-                     f"{float((got - old).abs().max()):.3g})")
         log(f"  {label} | {dims} bm {p.bm} | {p.n_m}x{p.cs} {p.placement} "
             f"{p.smem_bytes / 1024:.1f} | {err:.3g} | {spread(ms)} "
-            f"{plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.6f}{extra}")
+            f"{plain['ms']:.4f} {lib['ms']:.4f} {b_ms:.6f}")
         row = row_stats(ms, plain, lib, nbytes, flops, err)
         if main is None:          # the decode tick's fused segment
             main = row
@@ -642,7 +567,8 @@ def full_width(gen) -> dict:
     assert launched["nest_gemm"] > 0 and launched["flash_decode"] > 0
     n_prefill = launched["nest_gemm"] - rep.decode_ticks * (per_tick - 1)
     log(f"full width: {n_prefill} prefill nest_gemm launches in the serve "
-        f"({launched['nest_gemm'] - n_prefill} in {rep.decode_ticks} decode "
+        f"(a call on the wide-weight path is two; "
+        f"{launched['nest_gemm'] - n_prefill} in {rep.decode_ticks} decode "
         f"ticks)")
     sums2, rep2 = serve(sched, requests)     # the same serve, repeated
     assert sums == sums2, (sums, sums2)
@@ -857,11 +783,8 @@ def autotune_phase(untuned_sums: dict, fw_cells) -> dict:
 
 
 def main(argv) -> int:
-    baseline = None
-    if argv[:1] == ["--baseline"] and len(argv) == 2:
-        baseline = argv[1]
-    elif argv:
-        print("usage: chip_smoke.py [--baseline CSRC_DIR]", file=sys.stderr)
+    if argv:
+        print("usage: chip_smoke.py", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -894,8 +817,7 @@ def main(argv) -> int:
     fw_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
                                       cache=cache, reduce_model=False)
     shapes = nest_gemm_shapes(fw_dec, fw_pre, 4)
-    base = Baseline(baseline) if baseline else None
-    k1, _ = check_nest_gemm(shapes, timer, gen, base)
+    k1, _ = check_nest_gemm(shapes, timer, gen)
     check_rows_alone(shapes, gen)
     clocks("after nest_gemm")
     k3 = check_flash_decode(timer, gen)
@@ -904,7 +826,7 @@ def main(argv) -> int:
                                      feather_config(4, 16), cache=rcache)
     r_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny",
                                      feather_config(4, 16), cache=rcache)
-    k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen, base)
+    k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen)
     k4 = check_flash_decode_proj(fw_dec, timer, gen)
     k5, attn = check_flash_attention(timer, gen)
     k6, scan = check_mamba_scan(timer, gen)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of a full-width decode tick goes, on one NVIDIA GPU.
+"""Where the time of a decode tick goes, on one NVIDIA GPU.
 
-    python3 profile_decode.py [--requests 4] [--steps 8]
+    python3 profile_decode.py [--requests 4] [--steps 8] [--reduced]
 
-Serves full-width gemma-7b (FEATHER+ 16x256) through the PyTorch/CUDA
-port twice with the same submissions: first untraced (a warm-up, as
-``chip_smoke.py`` serves it), then under the span tracer, with cProfile
-around each decode tick's batch.  Each launch span ends in a device
+Serves full-width gemma-7b (FEATHER+ 16x256) -- or, with ``--reduced``,
+the reduced gemma-7b cell (FEATHER+ 4x16, the tests' cell, whose decode
+tick runs fused_chain) -- through the PyTorch/CUDA port three times with
+the same submissions: twice untraced (the first a warm-up, as
+``chip_smoke.py`` serves it; the second the steady tick), then under the
+span tracer, with cProfile around each decode tick's batch.  Each launch span ends in a device
 sync, so the traced ticks are slower than untraced ones and the share
 inside launch spans is an upper bound on the device's busy share.
 
@@ -73,25 +75,33 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the reduced cell (4x16) instead of full "
+                         "width")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
     print(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    cfg = feather_config(16, 256)
+    cfg = feather_config(4, 16) if args.reduced else feather_config(16, 256)
     cache = ProgramCache()
     prefill = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
-                                       cache=cache, reduce_model=False)
+                                       cache=cache,
+                                       reduce_model=args.reduced)
     decode = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
-                                      cache=cache, reduce_model=False)
+                                      cache=cache, reduce_model=args.reduced)
+    width = "reduced, 4x16" if args.reduced else "full width, 16x256"
+    print(f"cell: gemma-7b {width}, {args.requests} requests x "
+          f"{args.steps} decode steps")
     decode.batch_plan(args.requests)
     t0 = time.perf_counter()
     sched = Scheduler(prefill, decode, max_concurrent=args.requests)
     print(f"scheduler init: {time.perf_counter() - t0:.1f} s")
-    rep = serve(sched, args.requests, args.steps)
-    print(f"untraced serve: "
-          f"{rep.decode_wall_s / max(rep.decode_ticks, 1) * 1e3:.3f} ms per "
-          f"decode tick over {rep.decode_ticks} ticks")
+    for label in ("first", "repeat"):
+        rep = serve(sched, args.requests, args.steps)
+        print(f"untraced serve, {label}: "
+              f"{rep.decode_wall_s / max(rep.decode_ticks, 1) * 1e3:.3f} ms "
+              f"per decode tick over {rep.decode_ticks} ticks")
 
     trace.clear()
     trace.enable()
@@ -110,12 +120,21 @@ def main() -> int:
     trace.disable()
     tick_breakdown(trace.events())
     out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(14)
+    stats = pstats.Stats(prof, stream=out)
+    stats.sort_stats("tottime").print_stats(14)
     print(f"profiled serve: host functions by own time over "
           f"{rep.decode_ticks} decode ticks")
     for line in out.getvalue().splitlines():
         if line.strip() and not line.startswith(("   Ordered", "   List")):
             print("  " + line.rstrip())
+    print("profiled serve: kernel wrappers, host us per call (the C launch "
+          "included, cProfile's overhead too)")
+    for (path, line, name), (_, calls, own, cum, _) in sorted(
+            stats.stats.items()):
+        if os.path.join("repro_torch", "kernels") in path and calls:
+            print(f"  {os.path.basename(path)}:{line}({name}) {calls} calls, "
+                  f"{cum / calls * 1e6:.1f} us cumulative, "
+                  f"{own / calls * 1e6:.1f} us own")
     return 0
 
 

@@ -48,6 +48,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -420,6 +423,61 @@ __global__ void __launch_bounds__(kThreads) fused_chain_kernel(Params p) {
   cluster.sync();
 }
 
+// The host checks before a launch, made once per configuration: the
+// shared-memory opt-in (raised, never lowered, per device and kernel),
+// the non-portable cluster opt-in, and whether one cluster of cs blocks
+// with smem bytes each fits the card.  Later launches of a configuration
+// that passed skip them.
+cudaError_t check_once(void (*kernel)(Params), bool use_smem,
+                       cudaLaunchConfig_t* cfg, int cs, size_t smem) {
+  struct Fits {
+    int dev;
+    bool use_smem;
+    int cs;
+    size_t smem;
+  };
+  struct OptIn {
+    int dev;
+    bool use_smem;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Fits> fits;
+  static std::vector<OptIn> opted;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Fits& f : fits)
+    if (f.dev == dev && f.use_smem == use_smem && f.cs == cs &&
+        f.smem == smem)
+      return cudaSuccess;
+  OptIn* o = nullptr;
+  for (OptIn& e : opted)
+    if (e.dev == dev && e.use_smem == use_smem) o = &e;
+  if (o == nullptr) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    opted.push_back({dev, use_smem, 0});
+    o = &opted.back();
+  }
+  if (smem > o->smem) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    o->smem = smem;
+  }
+  // the chosen cluster must fit the card as it is; never shrink it
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  fits.push_back({dev, use_smem, cs, smem});
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // One launch of the chain.  ws[l] is layer l's [k, n] weight; layers
@@ -478,15 +536,6 @@ extern "C" int fused_chain_f32(const void* x, const void* const* ws,
 
   void (*kernel)(Params) = p.use_smem ? fused_chain_kernel<true>
                                       : fused_chain_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cs > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
@@ -499,11 +548,8 @@ extern "C" int fused_chain_f32(const void* x, const void* const* ws,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // the chosen cluster must fit the card as it is; never shrink it
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  cudaError_t err = check_once(kernel, p.use_smem != 0, &cfg, cs, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

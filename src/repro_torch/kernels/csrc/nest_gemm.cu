@@ -25,18 +25,23 @@
 //     read from HBM once for the whole decode batch; each thread keeps 8
 //     float4 weight loads in flight, issued before the X chunk they
 //     multiply is staged in shared memory;
-//   * 9 to 16 rows, and past 16 rows on a weight narrower than 8192
-//     columns (nest_gemm_tall_kernel): row blocks of 16 or 32 on
-//     16-column strips (a thread holds 16 rows x 4 columns; a block of 32
-//     rows is two 256-thread halves on the same W chunk), one block an
-//     SM: the blocks are persistent, and W and X chunks both arrive by
-//     16-byte cp.async into a 3-deep ring in shared memory, two chunks
-//     ahead of the FFMA and across tiles;
+//   * 9 to 16 rows (on the main path only prefill's small attention
+//     GEMMs): the same kernel, two row blocks of 8 along grid y;
+//   * past 16 rows on a weight narrower than 8192 columns
+//     (nest_gemm_tall_kernel): row blocks of 32 on 16-column strips (a
+//     thread holds 16 rows x 4 columns; the block is two 256-thread
+//     halves on the same W chunk), one block an SM: the blocks are
+//     persistent, and W and X chunks both arrive by 16-byte cp.async
+//     into a 3-deep ring in shared memory, two chunks ahead of the FFMA
+//     and across tiles;
 //   * past 16 rows on a wide weight (nest_gemm_wide_kernel: lm_head,
 //     mlp.up): 32 rows x 256 columns a block, the K groups one after
 //     another and folded into the same tree (below), so each weight byte
-//     is read once for 32 rows and X once for 256 columns;
-//   * past 32 rows the row blocks tile grid y;
+//     is read once for 32 rows and X once for 256 columns; a first
+//     kernel (group_rows) lays X out group-major, so such a call is two
+//     launches;
+//   * past 32 rows the row blocks of 32 are more tiles: grid y on the
+//     wide path, the persistent blocks' tile walk on the tall one;
 //   * no split-K across blocks and no atomics: each of the 64 K groups
 //     sums k = g, g+64, g+128, ... in ascending order, a warp's 8 groups
 //     are added by a fixed shuffle tree and the 8 warps in warp order.
@@ -199,11 +204,11 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
-// Row blocks of 16 and 32: the same 64 K groups, 4 column
-// threads and reduction as nest_gemm_kernel, so the same sums; VEC 4
-// (16-column strips) or 1 (N not a multiple of 4).  A thread holds 16
-// rows x VEC columns of accumulators; a row block of 32 is two halves of
-// 256 threads on the same W chunk, 16 warps at 128 registers.  That
+// Row blocks of 32: the same 64 K groups, 4 column threads and
+// reduction as nest_gemm_kernel, so the same sums; VEC 4 (16-column
+// strips) or 1 (N not a multiple of 4).  A thread holds 16 rows x VEC
+// columns of accumulators; the row block is two halves of 256 threads
+// on the same W chunk, 16 warps at 128 registers.  That
 // leaves one block an SM, so nothing else would hide a load or a block's
 // start and end: the blocks are persistent, one an SM, each walking tiles
 // (row block, strip) blockIdx.x, + gridDim.x, ... while W and X chunks of
@@ -612,16 +617,6 @@ cudaError_t launch_wide(const float* x, const float* w, float* o, int M,
                                  stream);
 }
 
-// past 8 rows: row blocks of 16 or 32, tiled along grid y past 32
-template <int VEC>
-cudaError_t dispatch_tall(const float* x, const float* w, float* o, int M,
-                          int K, int N, int out_t, int act,
-                          cudaStream_t stream) {
-  if (M <= 16)
-    return launch_tall<16, VEC>(x, w, o, M, K, N, out_t, act, stream);
-  return launch_tall<32, VEC>(x, w, o, M, K, N, out_t, act, stream);
-}
-
 template <int BM, int VEC>
 cudaError_t launch(const float* x, const float* w, float* o, int M, int K,
                    int N, int out_t, int act, cudaStream_t stream) {
@@ -644,22 +639,13 @@ cudaError_t dispatch_rows(const float* x, const float* w, float* o, int M,
 
 }  // namespace
 
-// Floats of scratch nest_gemm_f32 needs: X laid out group-major where
-// the wide-weight path runs (M > 16, N >= 8192, N % 4 == 0 and w 16-byte
-// aligned), else 0.
-extern "C" long long nest_gemm_scratch_floats(int M, int K, int N,
-                                              const void* w) {
-  const bool vec4 =
-      (N % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  if (M <= 16 || !vec4 || N < kWideN) return 0;
-  return (long long)((M + kWideRows - 1) / kWideRows) * kGroups *
-         wide_jp(K) * kWideRows;
-}
-
 // x [M, K], w [K, N] row-major contiguous fp32 on the device; o is
 // [M, N], or [N, M] when out_t.  act: 0 none, 1 relu, 2 gelu (tanh),
-// 3 silu.  scratch holds nest_gemm_scratch_floats(M, K, N, w) floats.
-// Launches on ``stream``; returns the launch's cudaError_t.
+// 3 silu.  Where the wide-weight path runs (M > 16, N >= 8192, N % 4 ==
+// 0 and w 16-byte aligned), scratch holds X group-major:
+// ceil(M / 32) * 64 * wide_jp(K) * 32 floats; elsewhere it is unused.
+// Launches on ``stream`` (two launches on the wide path); returns the
+// first failing launch's cudaError_t.
 extern "C" int nest_gemm_f32(const void* x, const void* w, void* o, int M,
                              int K, int N, int out_t, int act, void* scratch,
                              long long scratch_floats, void* stream) {
@@ -674,10 +660,10 @@ extern "C" int nest_gemm_f32(const void* x, const void* w, void* o, int M,
     return static_cast<int>(launch_wide(xf, wf, of, M, K, N, out_t, act,
                                         static_cast<float*>(scratch),
                                         scratch_floats, s));
-  if (M > 8)
+  if (M > 16)  // row blocks of 32, tiled along the persistent grid
     return static_cast<int>(
-        vec4 ? dispatch_tall<4>(xf, wf, of, M, K, N, out_t, act, s)
-             : dispatch_tall<1>(xf, wf, of, M, K, N, out_t, act, s));
+        vec4 ? launch_tall<32, 4>(xf, wf, of, M, K, N, out_t, act, s)
+             : launch_tall<32, 1>(xf, wf, of, M, K, N, out_t, act, s));
   if (!vec4)
     return static_cast<int>(dispatch_rows<1>(xf, wf, of, M, K, N, out_t, act, s));
   if (N >= kWideN)

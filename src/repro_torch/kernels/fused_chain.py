@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -192,6 +193,19 @@ def plan(dims, bm: int, bks, adapts, acts) -> Plan:
             return p
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_args(dims, bm, bks, adapts, acts):
+    """The plan and the kernel's layer and plan arrays, once per launch
+    configuration (hashable arguments)."""
+    p = plan(dims, bm, bks, adapts, acts)
+    layers = [v for l, d in enumerate(dims)
+              for v in (*d, p.bks[l], ACT_CODES[acts[l]], int(adapts[l]),
+                        p.chunks[l], p.w_offs[l])]
+    ints = p.ints(dims[-1][0])
+    return (p, (ctypes.c_int * len(layers))(*layers),
+            (ctypes.c_int * len(ints))(*ints))
+
+
 def placement(dims, bm: int, bks, adapts, acts) -> str:
     """Where the plan of this launch keeps a rank's buffers."""
     return plan(dims, bm, bks, adapts, acts).placement
@@ -227,22 +241,19 @@ def fused_chain(x: torch.Tensor, ws, *, bm: int, bks, acts, adapts=None,
             raise ValueError(f"chain shape mismatch at layer {l}")
         if acts[l] not in ACT_CODES:
             raise ValueError(f"unknown activation {acts[l]!r}")
-    p = plan(dims, bm, bks, adapts, acts)
-    m_out, n_out = dims[-1][0], dims[-1][2]
-    out = torch.empty((m_out, n_out), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(
-        p.n_m * p.cs * p.rank_floats if p.placement == "global" else 0,
-        dtype=torch.float32, device=x.device)
-    layers = [v for l, d in enumerate(dims)
-              for v in (*d, p.bks[l], ACT_CODES[acts[l]], int(bool(adapts[l])),
-                        p.chunks[l], p.w_offs[l])]
-    ints = p.ints(m_out)
+    p, layers, ints = _launch_args(
+        tuple(tuple(d) for d in dims), bm, tuple(bks),
+        tuple(bool(a) for a in adapts), tuple(acts))
+    out = torch.empty((dims[-1][0], dims[-1][2]), dtype=torch.float32,
+                      device=x.device)
+    scratch = (torch.empty(p.n_m * p.cs * p.rank_floats,
+                           dtype=torch.float32, device=x.device)
+               if p.placement == "global" else None)
     w_ptrs = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in ws])
     with torch.cuda.device(x.device):
         err = _fn()(
-            x.data_ptr(), w_ptrs, (ctypes.c_int * len(layers))(*layers),
-            n_layers, (ctypes.c_int * len(ints))(*ints), out.data_ptr(),
-            scratch.data_ptr() if scratch.numel() else None,
+            x.data_ptr(), w_ptrs, layers, n_layers, ints, out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             build.stream_handle())
     build.raise_on_error(err, "fused_chain")
     launches += 1

@@ -23,27 +23,40 @@ from repro_torch.kernels import build
 #: activation name -> the kernel's code
 ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (two for a call on
+#: the wide-weight path: the X relayout, then the GEMM)
 launches = 0
 
-_FNS = None
+#: the wide-weight path's geometry (``csrc/nest_gemm.cu``): rows a block,
+#: the K groups, and the first N it takes
+WIDE_ROWS, GROUPS, WIDE_N = 32, 64, 8192
+
+_FN = None
 
 
-def _fns():
-    """The launch and the scratch size it needs."""
-    global _FNS
-    if _FNS is None:
-        lib = build.load("nest_gemm")
-        fn = lib.nest_gemm_f32
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.load("nest_gemm").nest_gemm_f32
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_longlong,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        size = lib.nest_gemm_scratch_floats
-        size.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        size.restype = ctypes.c_longlong
-        _FNS = fn, size
-    return _FNS
+        _FN = fn
+    return _FN
+
+
+def scratch_floats(m: int, k: int, n: int, w_ptr: int) -> int:
+    """Floats of scratch the kernel needs: X laid out group-major where
+    the wide-weight path runs (more than 16 rows, N >= 8192, N % 4 == 0
+    and w 16-byte aligned), else 0.  A group's k are padded to whole
+    chunks of 48 where they divide by 48, else of 16."""
+    if m <= 16 or n < WIDE_N or n % 4 or w_ptr % 16:
+        return 0
+    jg = -(-k // GROUPS)
+    j = 48 if jg and jg % 48 == 0 else 16
+    jp = -(-jg // j) * j if jg else j
+    return -(-m // WIDE_ROWS) * GROUPS * jp * WIDE_ROWS
 
 
 def nest_gemm(x: torch.Tensor, w: torch.Tensor, *,
@@ -64,14 +77,15 @@ def nest_gemm(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"unknown activation {act!r}")
     out = torch.empty((n, m) if out_block_t else (m, n),
                       dtype=torch.float32, device=x.device)
-    fn, size = _fns()
-    n_scratch = size(m, k, n, w.data_ptr())
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    n_scratch = scratch_floats(m, k, n, w.data_ptr())
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+               if n_scratch else None)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                 int(out_block_t), ACT_CODES[act],
-                 scratch.data_ptr() if n_scratch else None, n_scratch,
-                 build.stream_handle())
+        err = _fn()(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                    int(out_block_t), ACT_CODES[act],
+                    scratch.data_ptr() if n_scratch else None, n_scratch,
+                    build.stream_handle())
     build.raise_on_error(err, "nest_gemm")
-    launches += 1
+    if m and n:
+        launches += 2 if n_scratch else 1
     return out

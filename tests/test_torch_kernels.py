@@ -34,7 +34,7 @@ from repro_torch.kernels import nest_gemm as ng
 
 @pytest.mark.parametrize("bk", [16, 128])
 @pytest.mark.parametrize("m,k,n,out_t,act", NEST_CASES + [
-    (16, 256, 100, False, "silu"),       # the row blocks of 16 and 32
+    (16, 256, 100, False, "silu"),       # past 8 rows
     (31, 129, 64, True, "relu"),
     (32, 512, 256, True, None),
 ])
@@ -301,6 +301,40 @@ def test_fused_plan_buffers_hold_every_layer():
         assert all(v % 4 == 0 for v in (p.slab_ld, p.rows_ld, p.acc_ld,
                                         *ints[7:10], *p.w_offs))
         assert ints[11] * 4 == (p.smem_bytes or 4 * p.rank_floats)
+
+
+def test_fused_launch_args_are_the_plan_once_per_configuration():
+    """The wrapper's launch arrays, built once per configuration, are the
+    plan's: a repeat call returns the same objects."""
+    for dims, bm, bks, acts, adapts in FUSED_CASES + CLUSTER_CASES:
+        args = (tuple(dims), bm, tuple(bks), tuple(adapts), tuple(acts))
+        p, layers, ints = fc._launch_args(*args)
+        assert p == fc.plan(dims, bm, bks, adapts, acts)
+        assert list(ints) == p.ints(dims[-1][0])
+        for l, d in enumerate(dims):
+            assert list(layers[8 * l:8 * l + 8]) == [
+                *d, p.bks[l], fc.ACT_CODES[acts[l]], int(adapts[l]),
+                p.chunks[l], p.w_offs[l]]
+        again = fc._launch_args(*args)
+        assert again[1] is layers and again[2] is ints
+
+
+@pytest.mark.parametrize("m,k,n,ptr,floats", [
+    (8, 3072, 256000, 0, 0),                 # decode rows
+    (16, 3072, 256000, 0, 0),                # row blocks of 32
+    (32, 24576, 3072, 0, 0),                 # a narrow weight
+    (32, 3072, 256000, 0, 64 * 48 * 32),     # lm_head: chunks of 48
+    (32, 3072, 24576, 4, 0),                 # w not 16-byte aligned
+    (31, 300, 8200, 0, 64 * 16 * 32),        # chunks of 16
+    (33, 1000, 24574, 0, 0),                 # N not a multiple of 4
+    (64, 24576, 8192, 0, 2 * 64 * 384 * 32),  # two row blocks
+])
+def test_nest_gemm_scratch_only_on_the_wide_path(m, k, n, ptr, floats):
+    """Only the wide-weight path (past 16 rows, N >= 8192 in float4
+    columns) takes scratch, for X laid out group-major in row blocks of
+    32 with each group's k padded to whole chunks: a decode call
+    allocates nothing beside its output."""
+    assert ng.scratch_floats(m, k, n, ptr) == floats
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
