@@ -15,6 +15,13 @@ Phases (any failure exits non-zero; no phase catches its own):
      and per prefill pass, and the rows of M = 16 and M = 32 launches are
      held bit-equal to the same rows at M = 1; each fused_chain case
      prints its plan (clusters x ranks, placement, shared memory);
+     flash_decode runs its case and the serves' shapes beside an empty
+     kernel's time (``csrc/empty.cu``, the launch floor);
+     flash_attention holds fp32 to 1e-4 of its plain version (three TF32
+     products on the tensor cores, bound at 495/3 TFLOP/s) and logs a
+     bf16 run beside SDPA in bf16.  The attention kernels' library call is
+     SDPA on 4-D inputs, every route that takes them timed, the fastest
+     kept;
   3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
      heads at 4096 tokens and ``ops.mamba_scan`` at falcon-mamba-7b's
      width, bit-equal to the kernels checked in phase 2;
@@ -37,12 +44,14 @@ the result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -62,10 +71,13 @@ from repro_torch.runtime import (ModelExecutable, ProgramCache,  # noqa: E402
                                  Scheduler, autotune_segment, segment_key)
 from repro_torch.runtime.autotune import _segment_tensors  # noqa: E402
 
-#: H100 SXM data-sheet peaks (at the 700 W limit): HBM bytes/s and fp32
-#: FFMA flop/s outside the tensor cores
+#: H100 SXM data-sheet peaks (at the 700 W limit): HBM bytes/s, and the
+#: flop/s of each kernel's route: fp32 FFMA outside the tensor cores, fp32
+#: on the tensor cores by three TF32 products (495 TFLOP/s / 3), bf16
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_3XTF32 = 495e12 / 3
+PEAK_BF16 = 989e12
 RTOL = 2e-4                      # the reference's cross_check tolerance
 REPS = 10
 #: the reduced cell's submissions (tests/test_batched_decode.py)
@@ -93,10 +105,27 @@ def clocks(when: str) -> None:
         f"temperature, draw)")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time (ms) the card could take, and what bounds it."""
-    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FP32
+def bound(nbytes: float, flops: float,
+          rate: float = PEAK_FP32) -> tuple[float, str]:
+    """Least time (ms) the card could take at the route's flop ``rate``,
+    and what bounds it."""
+    tb, tf = nbytes / PEAK_BYTES, flops / rate
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+_EMPTY = None
+
+
+def launch_floor() -> None:
+    """One launch of ``csrc/empty.cu``'s empty kernel: timed like the
+    kernels, the floor a launch cannot go under."""
+    global _EMPTY
+    if _EMPTY is None:
+        fn = build.load("empty").empty_launch
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _EMPTY = fn
+    build.raise_on_error(_EMPTY(build.stream_handle()), "empty kernel")
 
 
 class Timer:
@@ -132,12 +161,13 @@ def spread(t: dict) -> str:
 
 
 def row_stats(t: dict, plain: dict, lib: dict | None, nbytes: float,
-              flops: float, err: float) -> dict:
-    """A kernel's row: the medians, the kernel's spread, its work."""
+              flops: float, err: float, rate: float = PEAK_FP32) -> dict:
+    """A kernel's row: the medians, the kernel's spread, its work and the
+    flop rate of its route."""
     return {"ms": t["ms"], "ms_min": t["ms_min"], "ms_max": t["ms_max"],
             "plain_ms": plain["ms"],
             "library_ms": None if lib is None else lib["ms"],
-            "bytes": nbytes, "flops": flops, "err": err}
+            "bytes": nbytes, "flops": flops, "err": err, "rate": rate}
 
 
 def check(name: str, got, want, k: int) -> float:
@@ -155,6 +185,42 @@ def check(name: str, got, want, k: int) -> float:
                              f"version (max |err| {float(err.max())}, "
                              f"atol {atol})")
     return float(err.max())
+
+
+def sdpa_library(timer, name: str, want, then, q, k, v, **kw) -> dict:
+    """An attention kernel's library call: ``then(SDPA(q, k, v, **kw))`` on
+    4-D [batch, heads, S, d] inputs (SDPA's fused routes take no other
+    rank).  Every route that takes the inputs (one that does not raises
+    at its first call) is timed and its result held against ``want``;
+    the route the dispatcher picks, each route's time and error are
+    logged, and the fastest route's timing is returned."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    picked = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name.lower()
+    best, parts = None, []
+    for route in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        route_name = route.name.lower()
+
+        def call(route=route):
+            with sdpa_kernel([route]):
+                return then(sdpa(q, k, v, **kw))
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got = call()
+        except RuntimeError:        # the route does not take these inputs
+            parts.append(f"{route_name} -")
+            continue
+        err = float((got.float() - want.float()).abs().max())
+        t = timer(call)
+        parts.append(f"{route_name} {spread(t)} (max_err {err:.3g})")
+        if best is None or t["ms"] < best["ms"]:
+            best = {**t, "route": route_name}
+    assert best is not None, f"{name}: no SDPA route takes the inputs"
+    log(f"  {name} library, SDPA on 4-D inputs: the dispatcher picks "
+        f"{picked}; {'; '.join(parts)}; fastest {best['route']}")
+    return best
 
 
 def reset_counts() -> None:
@@ -200,7 +266,8 @@ def nest_gemm_shapes(decode, prefill, bucket: int) -> list[tuple]:
 
 def _total() -> dict:
     return {"ms": 0.0, "ms_min": 0.0, "ms_max": 0.0, "plain_ms": 0.0,
-            "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+            "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0,
+            "rate": PEAK_FP32}
 
 
 def check_nest_gemm(shapes, timer, gen) -> tuple[dict, dict]:
@@ -281,29 +348,46 @@ def check_rows_alone(shapes, gen) -> None:
     torch.cuda.empty_cache()
 
 
+#: flash_decode's cases (B, sq, skv, d, lengths): the timed row's (lengths
+#: from 1 to skv), then the full-width and reduced serves' shapes
+DECODE_CASES = [(4, 1, 16, 256, (16, 1, 9, 5)), (4, 1, 16, 256, (16,) * 4),
+                (5, 1, 16, 16, (16,) * 5)]
+
+
 def check_flash_decode(timer, gen) -> dict:
-    b, sq, skv, d = 4, 1, 16, 256
-    q = torch.randn(b, sq, d, device="cuda", generator=gen)
-    k = torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
-    v = torch.randn(b, skv, d, device="cuda", generator=gen)
-    lens = torch.tensor([16, 1, 9, 5], dtype=torch.int32, device="cuda")
-    got = fa.flash_decode(q, k, v, lens)
-    want = ref.flash_decode_ref(q, k, v, lens)
-    err = check("flash_decode", got, want, d)
-    mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])
-    mask = mask[:, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = timer(lambda: fa.flash_decode(q, k, v, lens))
-    plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens))
-    lib = timer(lambda: sdpa(q, k, v, attn_mask=mask, scale=1.0))
-    used = int(lens.sum())           # the KV rows this run's lengths need
-    nbytes = 4.0 * (2 * b * sq * d + 2 * used * d) + 4 * b
-    flops = 4.0 * sq * used * d
-    log(f"K3 flash_decode: B {b} sq {sq} skv {skv} d {d} lengths "
-        f"{lens.tolist()} | max_err {err:.3g} | ms {spread(ms)} plain "
-        f"{plain['ms']:.4f} sdpa {lib['ms']:.4f} bound "
-        f"{bound(nbytes, flops)[0]:.6f}")
-    return row_stats(ms, plain, lib, nbytes, flops, err)
+    """Each case against the plain version and timed, beside the empty
+    kernel's launch floor; the first case is the kernels JSON row."""
+    floor = timer(launch_floor)
+    log(f"K3 launch floor (empty kernel, 1 block of 32 threads): ms "
+        f"{spread(floor)}")
+    row = None
+    for b, sq, skv, d, lengths in DECODE_CASES:
+        q = torch.randn(b, sq, d, device="cuda", generator=gen)
+        k = torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
+        v = torch.randn(b, skv, d, device="cuda", generator=gen)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        got = fa.flash_decode(q, k, v, lens)
+        want = ref.flash_decode_ref(q, k, v, lens)
+        name = f"flash_decode {(b, sq, skv, d)}"
+        err = check(name, got, want, d)
+        mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])
+        ms = timer(lambda: fa.flash_decode(q, k, v, lens))
+        plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens))
+        lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
+                           k[:, None], v[:, None],
+                           attn_mask=mask[:, None, None, :], scale=1.0)
+        used = int(lens.sum())       # the KV rows this run's lengths need
+        nbytes = 4.0 * (2 * b * sq * d + 2 * used * d) + 4 * b
+        flops = 4.0 * sq * used * d
+        log(f"K3 flash_decode: B {b} sq {sq} skv {skv} d {d} lengths "
+            f"{list(lengths)} | max_err {err:.3g} | ms {spread(ms)} plain "
+            f"{plain['ms']:.4f} sdpa {lib['ms']:.4f} ({lib['route']}) bound "
+            f"{bound(nbytes, flops)[0]:.6f} launch floor {floor['ms']:.4f}")
+        if row is None:
+            row = row_stats(ms, plain, lib, nbytes, flops, err)
+        row["err"] = max(row["err"], err)
+    row["floor_ms"] = floor["ms"]
+    return row
 
 
 def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
@@ -338,9 +422,10 @@ def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
     return cases
 
 
-def check_fused_chain(cases, timer, gen) -> dict:
-    log("K2 fused_chain: case | dims | cluster placement smem_KB | max_err "
-        "| ms [min..max] plain_ms library_ms bound_ms")
+def check_fused_chain(cases, timer, gen, floor_ms: float) -> dict:
+    log(f"K2 fused_chain: case | dims | cluster placement smem_KB | max_err "
+        f"| ms [min..max] plain_ms library_ms bound_ms | launch floor "
+        f"{floor_ms:.4f} ms")
     main = None
     for label, dims, bm, bks, acts, adapts in cases:
         x = torch.randn(*dims[0][:2], device="cuda", generator=gen)
@@ -415,18 +500,19 @@ def check_flash_decode_proj(decode, timer, gen) -> dict:
     err = check("flash_decode_proj", got, want, k_out)
     b, sq = q.shape[:2]
     mask = (torch.arange(k.shape[1], device="cuda")[None, :]
-            < lens[:, None])[:, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+            < lens[:, None])
 
-    def library():
-        ctx = sdpa(q, k, v, attn_mask=mask, scale=1.0)
-        h = torch.stack([ref.adapt_rows(c, sq, m_out, k_out) for c in ctx])
+    def adapt_wo(ctx):
+        h = torch.stack([ref.adapt_rows(c, sq, m_out, k_out)
+                         for c in ctx[:, 0]])
         return torch.matmul(h, wo)
     ms_ = timer(lambda: fa.flash_decode_proj(q, k, v, lens, wo, m_out=m_out,
                                              k_out=k_out))
     plain = timer(lambda: ref.flash_decode_proj_ref(
         q, k, v, lens, wo, m_out=m_out, k_out=k_out))
-    lib = timer(library)
+    lib = sdpa_library(timer, "flash_decode_proj", want, adapt_wo,
+                       q[:, None], k[:, None], v[:, None],
+                       attn_mask=mask[:, None, None, :], scale=1.0)
     used = int(lens.sum())
     d, dv = q.shape[2], v.shape[2]
     nbytes = 4.0 * (b * sq * d + used * (d + dv) + k_out * a["n_out"]
@@ -437,7 +523,8 @@ def check_flash_decode_proj(decode, timer, gen) -> dict:
         f"{tuple(wo.shape)} | shared-memory group "
         f"{fa.proj_group(b, sq, d, dv)} | max_err {err:.3g} | ms "
         f"{spread(ms_)} plain {plain['ms']:.4f} sdpa+adapt+matmul "
-        f"{lib['ms']:.4f} bound {bound(nbytes, flops)[0]:.6f}")
+        f"{lib['ms']:.4f} ({lib['route']}) bound "
+        f"{bound(nbytes, flops)[0]:.6f}")
     return row_stats(ms_, plain, lib, nbytes, flops, err)
 
 
@@ -447,26 +534,60 @@ ATTN_SHAPE = (1, 4096, 16, 256)
 SCAN_SHAPE = (1, 4096, 8192, 16)
 
 
-def check_flash_attention(timer, gen) -> tuple[dict, tuple]:
+#: the largest |kernel - plain| flash_attention may show in fp32 at
+#: ATTN_SHAPE: three TF32 products keep it near the FFMA kernel's ~1e-5,
+#: where one TF32 pass would read ~1e-3
+ATTN_FP32_MAX_ERR = 1e-4
+
+
+def attention_inputs(gen) -> tuple:
+    """fp32 q, k, v [BH, S, d] at ATTN_SHAPE: q at 8x scale gives scores of
+    std ~8, a peaked softmax whose output RMS (~0.8) is over 10x the
+    2e-4 * d atol."""
     b, s, h, d = ATTN_SHAPE
-    # q at 8x scale: scores of std ~8, a peaked softmax whose output RMS
-    # (~0.8) is over 10x the 2e-4 * d atol
     q = torch.randn(b * h, s, d, device="cuda", generator=gen) * 8.0
     k = torch.randn(b * h, s, d, device="cuda", generator=gen)
     v = torch.randn(b * h, s, d, device="cuda", generator=gen)
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention_ref(q, k, v, causal=True)
-    err = check("flash_attention", got, want, d)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms_ = timer(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain = timer(lambda: ref.flash_attention_ref(q, k, v, causal=True))
-    lib = timer(lambda: sdpa(q, k, v, is_causal=True))
-    nbytes = 4.0 * 4 * b * h * s * d
+    return q, k, v
+
+
+def check_flash_attention(timer, gen) -> tuple[dict, tuple]:
+    """fp32 (the row: 3xTF32 on the tensor cores, max |err| at most
+    ATTN_FP32_MAX_ERR), then bf16 inputs at the same shape (logged beside
+    SDPA in bf16), each against its plain version."""
+    b, s, h, d = ATTN_SHAPE
+    q, k, v = attention_inputs(gen)
     flops = 4.0 * b * h * d * s * (s + 1) / 2     # causal pairs only
-    log(f"K5 flash_attention: BH {b * h} S {s} d {d} causal fp32 | max_err "
-        f"{err:.3g} | ms {spread(ms_)} plain {plain['ms']:.4f} sdpa "
-        f"{lib['ms']:.4f} bound {bound(nbytes, flops)[0]:.4f}")
-    return row_stats(ms_, plain, lib, nbytes, flops, err), (q, k, v, got)
+    row = None
+    for dtype, rate in ((torch.float32, PEAK_3XTF32),
+                        (torch.bfloat16, PEAK_BF16)):
+        qt, kt, vt = (x.to(dtype) for x in (q, k, v))
+        got = fa.flash_attention(qt, kt, vt, causal=True)
+        want = ref.flash_attention_ref(qt, kt, vt, causal=True)
+        name = f"flash_attention {str(dtype).split('.')[1]}"
+        err = check(name, got.float(), want.float(), d)
+        if dtype == torch.float32:
+            assert err <= ATTN_FP32_MAX_ERR, (name, err)
+        ms_ = timer(lambda: fa.flash_attention(qt, kt, vt, causal=True))
+        plain = timer(lambda: ref.flash_attention_ref(qt, kt, vt,
+                                                      causal=True))
+        lib = sdpa_library(timer, name, want, lambda o: o[0], qt[None],
+                           kt[None], vt[None], is_causal=True)
+        del want
+        nbytes = 4.0 * b * h * s * d * qt.element_size()
+        b_ms, b_by = bound(nbytes, flops, rate)
+        extra = ""
+        if dtype == torch.float32:
+            extra = f" (FFMA bound {bound(nbytes, flops)[0]:.4f})"
+        log(f"K5 {name}: BH {b * h} S {s} d {d} causal | max_err {err:.3g} "
+            f"| ms {spread(ms_)} plain {plain['ms']:.4f} sdpa "
+            f"{lib['ms']:.4f} ({lib['route']}) bound {b_ms:.4f} ({b_by})"
+            f"{extra}")
+        if row is None:
+            row = row_stats(ms_, plain, lib, nbytes, flops, err, rate)
+            kept = (q, k, v, got)
+        del qt, kt, vt
+    return row, kept
 
 
 def check_mamba_scan(timer, gen) -> tuple[dict, tuple]:
@@ -802,9 +923,14 @@ def main(argv) -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({ {n: round(i['seconds'], 1) for n, i in info.items()} })")
     for n, i in info.items():
+        entry = ""
         for line in i["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {n}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the mangled name past its anonymous namespace
+                entry = line.split("'")[1].split("_cu_")[-1][8:].lstrip(
+                    "0123456789")
+            elif "registers" in line or "spill" in line:
+                log(f"  {n} {entry}: {line.strip()}")
 
     # phase 2
     clocks("before phase 2")
@@ -826,7 +952,8 @@ def main(argv) -> int:
                                      feather_config(4, 16), cache=rcache)
     r_dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny",
                                      feather_config(4, 16), cache=rcache)
-    k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen)
+    k2 = check_fused_chain(fused_cases(r_dec, r_pre, 4), timer, gen,
+                           k3["floor_ms"])
     k4 = check_flash_decode_proj(fw_dec, timer, gen)
     k5, attn = check_flash_attention(timer, gen)
     k6, scan = check_mamba_scan(timer, gen)
@@ -858,7 +985,7 @@ def main(argv) -> int:
              k5, op["flash_attention"]),
             ("mamba_scan", "src/repro/kernels/mamba_scan.py:61", k6,
              op["mamba_scan"])):
-        b_ms, b_by = bound(stats["bytes"], stats["flops"])
+        b_ms, b_by = bound(stats["bytes"], stats["flops"], stats["rate"])
         rows.append({"name": name, "route": "cuda",
                      "source": f"{src}{name}.cu", "replaces": replaces,
                      "launches": launches, "max_abs_err": stats["err"],

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""This tree's nest_gemm and fused_chain against earlier sources of the
-same two kernels, on one NVIDIA GPU.
+"""This tree's kernels against earlier sources of the same kernels, on one
+NVIDIA GPU.
 
     mkdir -p build/old
     git show 69a36e5:src/repro_torch/kernels/csrc/nest_gemm.cu > build/old/nest_gemm.cu
     git show 69a36e5:src/repro_torch/kernels/csrc/fused_chain.cu > build/old/fused_chain.cu
+    git show 273c856:src/repro_torch/kernels/csrc/flash_attention.cu > build/old/flash_attention.cu
+    git show 273c856:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
     python3 compare_kernels.py build/old
 
-The earlier sources must have the C interfaces of commit 69a36e5:
+Each kernel whose source the directory holds is compared; an earlier
+source must have the C interface of the commit named above:
 ``nest_gemm_f32(x, w, o, M, K, N, out_t, act, stream)`` and
-``fused_chain_f32`` with one block per M block.  They are built with the
-port's nvcc flags.  On the same inputs, for each of ``chip_smoke.py``'s
-prefill nest_gemm shapes (M > 8) and each of its fused_chain cases, this
-prints whether the two outputs are ``torch.equal`` and both device times
-(median [min..max] of the reps, timed as ``chip_smoke.py`` times them).
-The earlier kernel is timed between two timings of this tree's kernel.
+``fused_chain_f32`` with one block per M block (commit 69a36e5);
+``flash_attention_fwd`` and ``flash_decode_f32`` as they are now (commit
+273c856).  They are built with the port's nvcc flags.  On the same
+inputs, for each of ``chip_smoke.py``'s prefill nest_gemm shapes (M > 8)
+and fused_chain cases, this prints whether the two outputs are
+``torch.equal``; for flash_attention at ``chip_smoke.py``'s shape (fp32
+and bf16) and flash_decode at its case and the serves' shapes, whose sum
+order changed, whether they are ``torch.allclose`` at ``check()``'s
+tolerance (fp32: rtol 2e-4, atol 2e-4 * d; bf16 outputs: rtol 2e-2, atol
+2e-1, the card tests') and their largest difference.  Both device times
+follow (median [min..max] of the reps, timed as ``chip_smoke.py`` times
+them); the earlier kernel is timed between two timings of this tree's.
 Exits non-zero if a kernel fails to build or launch, not on a difference.
 """
 
@@ -30,6 +39,7 @@ import torch
 import chip_smoke as cs
 from repro_torch.configs.feather import feather_config
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_chain as fc
 from repro_torch.kernels import nest_gemm as ng
 from repro_torch.runtime import ModelExecutable, ProgramCache
@@ -38,28 +48,46 @@ from repro_torch.runtime import ModelExecutable, ProgramCache
 OLD_SMEM_LIMIT = 200 * 1024
 
 
+#: the kernels this script can compare, by source name
+NAMES = ("nest_gemm", "fused_chain", "flash_attention", "flash_decode")
+
+
 class Old:
-    """The earlier kernels, built from ``src`` into the build directory."""
+    """The earlier kernels whose sources ``src`` holds, built into the build
+    directory; ``names`` lists them."""
 
     def __init__(self, src: str):
         os.makedirs(build.BUILD_DIR, exist_ok=True)
+        self.names = [n for n in NAMES
+                      if os.path.exists(os.path.join(src, f"{n}.cu"))]
         libs, procs = {}, []
-        for name in ("nest_gemm", "fused_chain"):
+        for name in self.names:
             libs[name] = os.path.join(build.BUILD_DIR, f"libold_{name}.so")
             procs.append(subprocess.Popen(
                 [build.nvcc_path(), *build.NVCC_FLAGS, "-o", libs[name],
-                 os.path.join(src, f"{name}.cu")]))
+                 os.path.join(src, f"{name}.cu")], stdout=subprocess.DEVNULL))
         if not all(p.wait() == 0 for p in procs):
             raise RuntimeError(f"the kernels in {src} did not build")
-        self.ng = ctypes.CDLL(libs["nest_gemm"]).nest_gemm_f32
-        self.ng.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                            + [ctypes.c_void_p])
-        self.ng.restype = ctypes.c_int
-        self.fc = ctypes.CDLL(libs["fused_chain"]).fused_chain_f32
-        self.fc.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                            + [ctypes.c_void_p])
-        self.fc.restype = ctypes.c_int
+        fns = {n: getattr(ctypes.CDLL(libs[n]), sym) for n, sym in (
+            ("nest_gemm", "nest_gemm_f32"), ("fused_chain", "fused_chain_f32"),
+            ("flash_attention", "flash_attention_fwd"),
+            ("flash_decode", "flash_decode_f32")) if n in libs}
+        argtypes = {
+            "nest_gemm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p],
+            "fused_chain": [ctypes.c_void_p] * 6 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p],
+            "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p]}
+        for name, fn in fns.items():
+            fn.argtypes = argtypes[name]
+            fn.restype = ctypes.c_int
+        self.ng = fns.get("nest_gemm")
+        self.fc = fns.get("fused_chain")
+        self.fa = fns.get("flash_attention")
+        self.fd = fns.get("flash_decode")
 
     def nest_gemm(self, x, w, *, out_block_t, act):
         m, k = x.shape
@@ -91,28 +119,46 @@ class Old:
         build.raise_on_error(err, "earlier fused_chain")
         return out
 
+    def flash_attention(self, q, k, v, *, causal):
+        bh, s, d = q.shape
+        out = torch.empty_like(q)
+        err = self.fa(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), bh, s, k.shape[1], d, k.shape[1],
+                      int(causal), int(q.dtype == torch.bfloat16),
+                      d ** -0.5, build.stream_handle())
+        build.raise_on_error(err, "earlier flash_attention")
+        return out
 
-def compare(label, new, old, timer) -> None:
-    same = torch.equal(new(), old())
+    def flash_decode(self, q, k, v, lengths):
+        b, sq, d = q.shape
+        dv = v.shape[2]
+        out = torch.empty((b, sq, dv), device=q.device)
+        err = self.fd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      lengths.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
+                      d, dv, 1.0, build.stream_handle())
+        build.raise_on_error(err, "earlier flash_decode")
+        return out
+
+
+def compare(label, new, old, timer, tol=None) -> None:
+    """Both outputs on the same inputs (``torch.equal``, or with ``tol`` =
+    (rtol, atol) ``torch.allclose`` and the largest difference), then the
+    times: this tree's kernel, the earlier one, this tree's again."""
+    a_out, b_out = new(), old()
+    if tol is None:
+        same = f"torch.equal {torch.equal(a_out, b_out)}"
+    else:
+        a_f, b_f = a_out.float(), b_out.float()
+        close = torch.allclose(a_f, b_f, rtol=tol[0], atol=tol[1])
+        same = (f"torch.allclose (rtol {tol[0]}, atol {tol[1]}) {close}, "
+                f"max |diff| {float((a_f - b_f).abs().max()):.3g}")
+    del a_out, b_out
     a, b, c = timer(new), timer(old), timer(new)
-    print(f"  {label} | torch.equal {same} | this tree {cs.spread(a)} then "
+    print(f"  {label} | {same} | this tree {cs.spread(a)} then "
           f"{cs.spread(c)} | earlier {cs.spread(b)}", flush=True)
 
 
-def main(argv) -> int:
-    if len(argv) != 1:
-        print("usage: compare_kernels.py OLD_CSRC_DIR", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("compare_kernels: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {cs.card()}", flush=True)
-    build.build(("nest_gemm", "fused_chain"))
-    old = Old(argv[0])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    timer = cs.Timer()
-
+def compare_gemms(old, gen, timer) -> None:
     cache = ProgramCache()
     fw = [ModelExecutable.for_cell("gemma-7b", cell, feather_config(16, 256),
                                    cache=cache, reduce_model=False)
@@ -130,6 +176,8 @@ def main(argv) -> int:
         del x, w
     torch.cuda.empty_cache()
 
+
+def compare_fused(old, gen, timer) -> None:
     rcache = ProgramCache()
     red = [ModelExecutable.for_cell("gemma-7b", cell, feather_config(4, 16),
                                     cache=rcache)
@@ -144,6 +192,61 @@ def main(argv) -> int:
         compare(f"{label} ({p.n_m}x{p.cs} {p.placement})",
                 lambda: fc.fused_chain(x, ws, **kw),
                 lambda: old.fused_chain(x, ws, **kw), timer)
+
+
+def compare_attention(old, gen, timer) -> None:
+    b, s, h, d = cs.ATTN_SHAPE
+    print(f"flash_attention: BH {b * h} S {s} d {d} causal, chip_smoke.py's "
+          f"inputs", flush=True)
+    q, k, v = cs.attention_inputs(gen)
+    for dtype, tol in ((torch.float32, (cs.RTOL, cs.RTOL * d)),
+                       (torch.bfloat16, (2e-2, 2e-1))):
+        qt, kt, vt = (x.to(dtype) for x in (q, k, v))
+        compare(f"{str(dtype).split('.')[1]}",
+                lambda: fa.flash_attention(qt, kt, vt, causal=True),
+                lambda: old.flash_attention(qt, kt, vt, causal=True), timer,
+                tol)
+        del qt, kt, vt
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def compare_decode(old, gen, timer) -> None:
+    print("flash_decode: B sq skv d dv lengths", flush=True)
+    for b, sq, skv, d, lengths in cs.DECODE_CASES:
+        q = torch.randn(b, sq, d, device="cuda", generator=gen)
+        k = torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
+        v = torch.randn(b, skv, d, device="cuda", generator=gen)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        compare(f"{b} {sq} {skv} {d} {d} {list(lengths)}",
+                lambda: fa.flash_decode(q, k, v, lens),
+                lambda: old.flash_decode(q, k, v, lens), timer,
+                (cs.RTOL, cs.RTOL * d))
+    floor = timer(cs.launch_floor)
+    print(f"  empty kernel (launch floor): {cs.spread(floor)}", flush=True)
+
+
+def main(argv) -> int:
+    if len(argv) != 1:
+        print("usage: compare_kernels.py OLD_CSRC_DIR", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {cs.card()}", flush=True)
+    old = Old(argv[0])
+    build.build(tuple(old.names) + ("empty",))
+    print(f"earlier kernels from {argv[0]}: {old.names}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = cs.Timer()
+    for name, fn in (("nest_gemm", compare_gemms),
+                     ("fused_chain", compare_fused),
+                     ("flash_attention", compare_attention),
+                     ("flash_decode", compare_decode)):
+        if name in old.names:
+            fn(old, gen, timer)
     print(cs.card(), flush=True)
     return 0
 

@@ -1,131 +1,259 @@
-// Batched ragged decode attention for Hopper, fp32.
+// Batched ragged decode attention for Hopper, fp32, shaped for latency.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_decode /
 // _decode_kernel (the Pallas TPU kernel that advances a whole decode
 // batch's attention segment in one launch).
 //
 // For request b: out[b] = softmax(q[b] k[b, :len_b]^T * scale) v[b, :len_b],
-// by the online-softmax recurrence over KV blocks with running
+// by the online-softmax recurrence over KV tiles with running
 // (max, sum, acc); positions at or past len_b are masked, a masked score
-// contributes p = 0 (also when a whole block is masked), and there is no
+// contributes p = 0 (a request of length 0 gives zeros), and there is no
 // default d**-0.5 scale (the GEMM stream's score GEMM carries none).
 //
 // What bounds it on an H100: every q, k and v element is read once and
-// used for 2 flops, so the bytes bound it; at the main path's shapes
-// (4 requests x 16 positions x 256 wide) the whole launch moves ~130 KB
-// and takes a few microseconds, so launch latency dominates.
+// used for 2 flops, so the bytes bound it; but at the serve's shapes (up
+// to 4 requests x 1 query row x 16 positions x 256 wide at full width, up
+// to 5 x 1 x 16 x 16 reduced) a launch moves at most ~130 KB, a few
+// hundredths of a microsecond at 3.35 TB/s: the launch, one memory round
+// trip and the chain of dependent steps in a block set its time.
 //
-// What the design does about it: one block per request walks its own KV
-// blocks with the running state in shared memory (no cross-block
-// reduction, one launch for the batch); K and V blocks are staged in
-// shared memory with coalesced loads, each score is one warp's dot
-// product, and each softmax row is one warp's max and sum.
+// What the design does about it:
+// - Spread: a block per (strip of 64 columns of v, group of 16 query
+//   rows, request), so the serve's launch runs on 16 SMs, not 4.
+//   Each block recomputes its rows' scores over the whole d (sq * len * d
+//   flops, tiny) and keeps only its strip of the output.
+// - One round trip: q, the first KV tile's K rows and V strip go out as
+//   16-byte cp.async together with the load of the request's length, and
+//   are waited for once; later tiles (longer than 16 positions) are
+//   fetched while the previous one is computed.
+// - Short chains: all 128 threads score a query row at once (16
+//   positions x 8 segments of d, joined by three shuffles), then every
+//   warp runs the softmax of each row by shuffles and the P V product for
+//   its own columns of the strip.  Two barriers a KV tile: one for the
+//   tile's loads, one for the scores.  With one barrier (each warp
+//   scoring every row itself, no scores in shared memory) the four
+//   warps read K from shared memory four times over, which costs more
+//   than the barrier it saves: 0.0073 against 0.0070 ms at the serve's
+//   shape on an H100 (compare_kernels.py).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockKV = 16;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 16;                // KV positions a tile
+constexpr int kSeg = kThreads / kTile;   // segments of d a score is cut into
+constexpr int kRows = 16;                // query rows a block
+constexpr int kStrip = 64;               // columns of v a block
+constexpr int kWarpCols = kStrip / kWarps;  // 16: a lane's column and half
+constexpr int kKeys = kTile / 2;         // positions in a half
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// rows [r0, r0 + rows) of a row-major [n_rows, width] matrix, columns
+// [c0, c0 + cols), into shared memory rows of `stride` floats; columns
+// past `width` and rows past n_rows are zero.  VEC: 16-byte cp.async
+// (width, c0 and the base 16-byte aligned); else element copies.
+template <bool VEC>
+__device__ __forceinline__ void stage(float* dst, int stride,
+                                      const float* src, int width, int r0,
+                                      int rows, int n_rows, int c0,
+                                      int cols) {
+  if constexpr (VEC) {
+    const int chunks = cols / 4;
+    for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i % chunks) * 4;
+      const bool in = r0 + r < n_rows && c0 + c < width;
+      const float* g = in ? src + (size_t)(r0 + r) * width + c0 + c : src;
+      cp_async16(dst + r * stride + c, g, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i % cols;
+      const bool in = r0 + r < n_rows && c0 + c < width;
+      dst[r * stride + c] =
+          in ? src[(size_t)(r0 + r) * width + c0 + c] : 0.0f;
+    }
+  }
 }
 
+// grid (strips of kStrip columns of dv, groups of kRows query rows,
+// requests)
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ lengths,
                         float* __restrict__ o, int sq, int skv, int d,
-                        int dv, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [sq, d]
-  float* ks = qs + sq * d;             // [kBlockKV, d]
-  float* vs = ks + kBlockKV * d;       // [kBlockKV, dv]
-  float* ps = vs + kBlockKV * dv;      // [sq, kBlockKV]
-  float* acc = ps + sq * kBlockKV;     // [sq, dv]
-  float* m_run = acc + sq * dv;        // [sq]
-  float* l_run = m_run + sq;           // [sq]
-  float* alpha = l_run + sq;           // [sq]
+                        int dv, int dp, int qrows, float scale) {
+  // dp: d padded to a multiple of 8; rows of q and k are dp + 4 floats;
+  // qrows = min(sq, kRows) rows of q
+  extern __shared__ __align__(16) float smem[];
+  const int ds = dp + 4;
+  float* qs = smem;                              // [qrows, ds]
+  float* ks = qs + qrows * ds;                   // [2][kTile, ds]
+  float* vs = ks + 2 * kTile * ds;               // [2][kTile, kStrip]
+  float* ss = vs + 2 * kTile * kStrip;           // [kRows, kTile] scores
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int len = lengths[b];
+  const int c0 = blockIdx.x * kStrip;
+  const int row0 = blockIdx.y * kRows;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* qb = q + (size_t)b * sq * d;
   const float* kb = k + (size_t)b * skv * d;
   const float* vb = v + (size_t)b * skv * dv;
+  const int rows = min(kRows, sq - row0);
 
-  for (int i = tid; i < sq * d; i += kThreads) qs[i] = qb[i];
-  for (int i = tid; i < sq * dv; i += kThreads) acc[i] = 0.0f;
-  for (int i = tid; i < sq; i += kThreads) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.0f;
+  // everything the first tile needs, in flight together with the length
+  stage<VEC>(qs, ds, qb, d, row0, qrows, sq, 0, dp);
+  stage<VEC>(ks, ds, kb, d, 0, kTile, skv, 0, dp);
+  stage<VEC>(vs, kStrip, vb, dv, 0, kTile, skv, c0, kStrip);
+  cp_async_commit();
+  const int len = min(max(lengths[b], 0), skv);
+  const int n_tiles = (len + kTile - 1) / kTile;
+
+  // scoring: a thread takes position `pos` over every kSeg-th float4 of d
+  const int pos = threadIdx.x / kSeg, seg = threadIdx.x % kSeg;
+  // P V: a lane's column of the strip and half of the positions
+  const int col = warp * kWarpCols + lane % kWarpCols;
+  const int half = lane / kWarpCols;
+  float m_run[kRows], l_run[kRows], acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.0f;
+    acc[r] = 0.0f;
   }
 
-  for (int kv0 = 0; kv0 < skv; kv0 += kBlockKV) {
-    __syncthreads();
-    for (int i = tid; i < kBlockKV * d; i += kThreads) {
-      const int j = kv0 + i / d;
-      ks[i] = j < skv ? kb[(size_t)kv0 * d + i] : 0.0f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    const float* kt = ks + buf * kTile * ds;
+    const float* vt = vs + buf * kTile * kStrip;
+    cp_async_wait<0>();
+    __syncthreads();                     // tile in; tile - 1 read by all
+    if (tile + 1 < n_tiles) {
+      const int nxt = (tile + 1) * kTile;
+      stage<VEC>(ks + (buf ^ 1) * kTile * ds, ds, kb, d, nxt, kTile, skv, 0,
+                 dp);
+      stage<VEC>(vs + (buf ^ 1) * kTile * kStrip, kStrip, vb, dv, nxt,
+                 kTile, skv, c0, kStrip);
+      cp_async_commit();
     }
-    for (int i = tid; i < kBlockKV * dv; i += kThreads) {
-      const int j = kv0 + i / dv;
-      vs[i] = j < skv ? vb[(size_t)kv0 * dv + i] : 0.0f;
-    }
-    __syncthreads();
-    // scores: one warp per (row, position) dot product
-    for (int p = warp; p < sq * kBlockKV; p += kWarps) {
-      const int i = p / kBlockKV, j = p % kBlockKV;
-      float s = 0.0f;
-      for (int c = lane; c < d; c += 32) s = fmaf(qs[i * d + c], ks[j * d + c], s);
-      s = warp_sum(s) * scale;
-      if (lane == 0) ps[p] = (kv0 + j < len) ? s : kNegInf;
-    }
-    __syncthreads();
-    // online softmax: one warp per row
-    for (int i = warp; i < sq; i += kWarps) {
-      const float s = lane < kBlockKV ? ps[i * kBlockKV + lane] : kNegInf;
-      const float m_prev = m_run[i];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = (lane < kBlockKV && s > kNegInf / 2) ? expf(s - m_new)
-                                                           : 0.0f;
-      const float psum = warp_sum(p);
-      if (lane < kBlockKV) ps[i * kBlockKV + lane] = p;
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        alpha[i] = a;
-        l_run[i] = l_run[i] * a + psum;
-        m_run[i] = m_new;
+    const int n_valid = min(kTile, len - tile * kTile);
+
+    const float4* kr = reinterpret_cast<const float4*>(kt + pos * ds);
+    for (int i = 0; i < rows; ++i) {
+      const float4* qr = reinterpret_cast<const float4*>(qs + i * ds);
+      float s0 = 0.0f, s1 = 0.0f;
+      int c = seg;
+      for (; c + kSeg < dp / 4; c += 2 * kSeg) {
+        const float4 a = qr[c], bb = kr[c];
+        const float4 a2 = qr[c + kSeg], b2 = kr[c + kSeg];
+        s0 = fmaf(a.x, bb.x, s0);
+        s1 = fmaf(a2.x, b2.x, s1);
+        s0 = fmaf(a.y, bb.y, s0);
+        s1 = fmaf(a2.y, b2.y, s1);
+        s0 = fmaf(a.z, bb.z, s0);
+        s1 = fmaf(a2.z, b2.z, s1);
+        s0 = fmaf(a.w, bb.w, s0);
+        s1 = fmaf(a2.w, b2.w, s1);
       }
+      if (c < dp / 4) {
+        const float4 a = qr[c], bb = kr[c];
+        s0 = fmaf(a.x, bb.x, s0);
+        s0 = fmaf(a.y, bb.y, s0);
+        s0 = fmaf(a.z, bb.z, s0);
+        s0 = fmaf(a.w, bb.w, s0);
+      }
+      float s = s0 + s1;
+#pragma unroll
+      for (int off = kSeg / 2; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (seg == 0) ss[i * kTile + pos] = pos < n_valid ? s * scale : kNegInf;
     }
-    __syncthreads();
-    for (int idx = tid; idx < sq * dv; idx += kThreads) {
-      const int i = idx / dv, c = idx % dv;
+    __syncthreads();                     // the tile's scores are in
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= rows) break;
+      const float x = ss[r * kTile + lane % kTile];
+      float mx = x;
+#pragma unroll
+      for (int off = kTile / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float p = x > kNegInf / 2 ? expf(x - m_new) : 0.0f;
+      float psum = p;
+#pragma unroll
+      for (int off = kTile / 2; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      const float alpha = expf(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha + psum;
+      m_run[r] = m_new;
       float pv = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kBlockKV; ++j)
-        pv = fmaf(ps[i * kBlockKV + j], vs[j * dv + c], pv);
-      acc[idx] = acc[idx] * alpha[i] + pv;
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const int j = half * kKeys + jj;
+        pv = fmaf(__shfl_sync(0xffffffffu, p, j), vt[j * kStrip + col], pv);
+      }
+      pv += __shfl_xor_sync(0xffffffffu, pv, 16);
+      acc[r] = acc[r] * alpha + pv;
     }
   }
-  __syncthreads();
-  float* ob = o + (size_t)b * sq * dv;
-  for (int idx = tid; idx < sq * dv; idx += kThreads)
-    ob[idx] = acc[idx] / fmaxf(l_run[idx / dv], 1e-30f);
+  cp_async_wait<0>();
+
+  if (half != 0) return;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r >= rows) break;
+    const float inv = 1.0f / fmaxf(l_run[r], 1e-30f);
+    if (c0 + col < dv)
+      o[((size_t)b * sq + row0 + r) * dv + c0 + col] = acc[r] * inv;
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* lengths, void* o, int B, int sq, int skv,
+                   int d, int dv, float scale, cudaStream_t stream) {
+  const int dp = (d + 7) / 8 * 8;
+  const int qrows = sq < kRows ? sq : kRows;
+  const size_t smem =
+      sizeof(float) * ((size_t)(qrows + 2 * kTile) * (dp + 4) +
+                       (size_t)2 * kTile * kStrip + (size_t)kRows * kTile);
+  const bool vec = d % 4 == 0 && dv % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) |
+                     reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  auto kernel = vec ? flash_decode_kernel<true>
+                    : flash_decode_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((dv + kStrip - 1) / kStrip, (sq + kRows - 1) / kRows, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lengths),
+      static_cast<float*>(o), sq, skv, d, dv, dp, qrows, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -138,18 +266,7 @@ extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
                                 int skv, int d, int dv, float scale,
                                 void* stream) {
   if (B <= 0 || sq <= 0 || dv <= 0) return 0;
-  const size_t smem = sizeof(float) *
-                      ((size_t)sq * d + (size_t)kBlockKV * (d + dv) +
-                       (size_t)sq * kBlockKV + (size_t)sq * dv + 3 * (size_t)sq);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  flash_decode_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(o), sq, skv, d, dv, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch(
+      q, k, v, lengths, o, B, sq, skv, d, dv, scale,
+      static_cast<cudaStream_t>(stream)));
 }

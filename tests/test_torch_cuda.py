@@ -33,6 +33,9 @@ def _t(a, device="cpu"):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plain versions' matmuls in full fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -276,6 +279,96 @@ def test_flash_attention_kernel_masks_blockaligned_padded_kv(cuda):
                              kv_len=real_kv)
     want = ref.flash_attention_ref(q, k, v, causal=False)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_fp32_accuracy(cuda, causal):
+    """fp32 on the tensor cores keeps fp32 accuracy (three TF32 products a
+    pair of fragments): q at 8x scale gives scores of std ~8, where one
+    TF32 pass would move the output by ~1e-3; the bound is 1e-4 absolute
+    on outputs of RMS ~0.8."""
+    bh, s, d = 2, 512, 256
+    q = _t(_np((bh, s, d), 8.0), cuda)
+    k, v = _t(_np((bh, s, d)), cuda), _t(_np((bh, s, d)), cuda)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                             (torch.bfloat16, 2e-2, 2e-1)])
+@pytest.mark.parametrize("s,sk,d,causal,kv_len", [
+    (200, 333, 64, False, None),     # neither a multiple of the tiles
+    (129, 129, 128, True, None),     # one row past a query block
+    (77, 45, 80, True, 31),          # head_dim off the 32 grid, short kv
+    (150, 96, 256, False, 70),       # kv_len inside a KV tile
+    (64, 130, 256, True, 128),       # block-aligned kv_len, ragged buffer
+    (33, 17, 20, False, 0),          # every key masked: zeros
+])
+def test_flash_attention_kernel_ragged(cuda, s, sk, d, causal, kv_len,
+                                       dtype, rtol, atol):
+    """Direct launches on extents that are no multiple of the kernel's
+    128-row query blocks or 32-key tiles, with keys at or past kv_len
+    masked (poisoned, so a leak would show)."""
+    bh = 3
+    q = _t(_np((bh, s, d), 0.3), cuda).to(dtype)
+    k, v = _t(_np((bh, sk, d), 0.3), cuda), _t(_np((bh, sk, d)), cuda)
+    real = sk if kv_len is None else kv_len
+    k[:, real:] = 100.0
+    v[:, real:] = 100.0
+    k, v = k.to(dtype), v.to(dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, s, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if real == 0:
+        assert not got.float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                             (torch.bfloat16, 2e-2, 2e-1)])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+def test_flash_attention_kernel_head_dims(cuda, d, dtype, rtol, atol):
+    q, k, v = (_t(a, cuda).to(dtype) for a in _attn_inputs(1, 256, 2, d))
+    got = ops.flash_attention(q, k, v, causal=True)
+    fold = [x.transpose(1, 2).reshape(2, 256, d) for x in (q, k, v)]
+    want = ref.flash_attention_ref(*fold, causal=True)
+    want = want.reshape(1, 2, 256, d).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qshape,skv,lengths,dv", [
+    ((3, 20, 64), 37, (0, 37, 16), 96),    # two row groups, a part strip
+    ((2, 5, 256), 50, (50, 17), 512),      # four tiles, the last ragged
+    ((5, 1, 16), 16, (16,) * 5, 16),       # the reduced serve's widths
+    ((4, 1, 256), 16, (16,) * 4, 256),     # the full-width serve's
+    ((2, 3, 20), 19, (19, 4), 28),         # d and dv off the float4 grid
+])
+def test_flash_decode_kernel_shapes(cuda, qshape, skv, lengths, dv):
+    """Query rows past one block's 16, KV past one 16-position tile,
+    lengths from 0 to skv, output strips of 64 columns and part of one,
+    and the serves' shapes."""
+    b, sq, d = qshape
+    q = _t(_np(qshape), cuda)
+    k, v = _t(_np((b, skv, d), 0.5), cuda), _t(_np((b, skv, dv)), cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = fa.launches
+    got = fa.flash_decode(q, k, v, lens)
+    want = ref.flash_decode_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.shape == (b, sq, dv)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * d)
+    if 0 in lengths:            # a request of length 0 gives zeros
+        assert not got[list(lengths).index(0)].any()
 
 
 @pytest.mark.cuda

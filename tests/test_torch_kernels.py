@@ -358,3 +358,37 @@ def test_build_targets_are_content_addressed():
         t = build.target(name)
         assert t.parent == build.BUILD_DIR and t.name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: integer ops on the bits."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_three_tf32_products_keep_fp32_accuracy():
+    """Why ``csrc/flash_attention.cu`` takes three tensor-core products for
+    fp32 scores: at the smoke statistics (q at 8x, d 256, a few hundred
+    keys), split a = hi + lo with hi = tf32(a), lo = tf32(a - hi); the sum
+    lo*hi + hi*lo + hi*hi (each product exact, as the tensor cores form
+    it) stays within 1e-5 of the float64 Q K^T, relative to sum |q||k|,
+    and one TF32 product (hi*hi) does not."""
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy((rng.standard_normal((64, 256)) * 8.0)
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((300, 256)).astype(np.float32))
+    assert torch.equal(_tf32(torch.tensor([1 + 2 ** -11, -1 - 2 ** -11,
+                                           1 + 2 ** -12])),
+                       torch.tensor([1 + 2 ** -10, -1 - 2 ** -10, 1.0]))
+    qh, kh = _tf32(q), _tf32(k)
+    ql, kl = _tf32(q - qh), _tf32(k - kh)
+    assert torch.equal(_tf32(qh), qh) and torch.equal(_tf32(ql), ql)
+
+    def mm(a, b):
+        return a.double() @ b.double().T
+    exact = mm(q, k)
+    scale = mm(q.abs(), k.abs())
+    three = mm(ql, kh) + mm(qh, kl) + mm(qh, kh)
+    one = mm(qh, kh)
+    assert float(((three - exact).abs() / scale).max()) <= 1e-5
+    assert float(((one - exact).abs() / scale).max()) > 1e-5
