@@ -30,10 +30,17 @@ Phases (any failure exits non-zero; no phase catches its own):
      deterministic checksums, batched == sequential decode;
   5. block-fused decode attention at full width: one
      ``run_batched_attention_proj`` launch (flash_decode_proj) for 4
-     requests, equal to the base oracle (attention + adapt + Wo);
+     requests, equal to the base oracle (attention + adapt + Wo); phase 2
+     holds each request's rows of that kernel bit-equal between a
+     4-request and a 1-request launch;
   6. the reduced gemma-7b cell (4x16): batched fused decode on the card
      (fused_chain launched) with checksums bit-equal to the CPU path;
-  7. autotune: every fused segment of the reduced cells measured on the
+  7. the functional interpreter on the card: the reduced cell served by
+     ``Scheduler(..., backend="interpreter")`` (no kernel launched) twice,
+     checksums equal to each other and to phase 6's (so to the CPU
+     path's); a decode stream run twice, torch.equal; one
+     ``backends.cross_check`` of interpreter == cuda == oracle;
+  8. autotune: every fused segment of the reduced cells measured on the
      card, a warm second pass doing no work, the tuned serve's checksums
      equal to the untuned serve's, and no segment legal to tune at full
      width.
@@ -58,9 +65,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import backends  # noqa: E402
 from repro_torch.backends import (Backend, CudaBackend,  # noqa: E402
                                   compile_program, compile_segment)
 from repro_torch.configs.feather import feather_config  # noqa: E402
+from repro_torch.core import mapper, workloads  # noqa: E402
 from repro_torch.core import program as programlib  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -145,7 +154,7 @@ class Timer:
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.clear_l2()
             torch.cuda._sleep(1_000_000)    # ~0.5 ms of device spin
             self.start.record()
             fn()
@@ -154,6 +163,10 @@ class Timer:
             times.append(self.start.elapsed_time(self.end))
         return {"ms": statistics.median(times), "ms_min": min(times),
                 "ms_max": max(times), "reps": times}
+
+    def clear_l2(self) -> None:
+        """Evict L2 (50 MB) by writing 256 MB."""
+        self.flush.zero_()
 
 
 def spread(t: dict) -> str:
@@ -518,6 +531,16 @@ def check_flash_decode_proj(decode, timer, gen) -> dict:
     nbytes = 4.0 * (b * sq * d + used * (d + dv) + k_out * a["n_out"]
                     + b * m_out * a["n_out"]) + 4 * b
     flops = 2.0 * sq * used * (d + dv) + 2.0 * b * m_out * k_out * a["n_out"]
+    # each request's rows alone: bit-equal, the K split depends on k_out
+    for r in range(b):
+        alone = fa.flash_decode_proj(
+            q[r:r + 1].contiguous(), k[r:r + 1].contiguous(),
+            v[r:r + 1].contiguous(), lens[r:r + 1].contiguous(), wo,
+            m_out=m_out, k_out=k_out)
+        assert torch.equal(alone[0], got[r]), \
+            (r, float((alone[0] - got[r]).abs().max()))
+    log(f"K4 flash_decode_proj: each request's rows of the {b}-request "
+        f"launch torch.equal to the request launched alone")
     log(f"K4 flash_decode_proj: B {b} sq {sq} skv {k.shape[1]} d {d} "
         f"lengths {lens.tolist()} adapt ({m_out}, {k_out}) @ wo "
         f"{tuple(wo.shape)} | shared-memory group "
@@ -784,6 +807,55 @@ def reduced_width() -> tuple[dict, dict]:
     return launched, sums
 
 
+def interpreter_phase(cuda_sums: dict) -> dict:
+    """The reduced cell served by the functional interpreter on the card,
+    twice; its checksums against each other and the cuda serve's (equal
+    to the CPU path's); a decode stream run twice on it, torch.equal;
+    one cross_check of interpreter == cuda == oracle."""
+    cfg = feather_config(4, 16)
+    cache = ProgramCache()
+    prefill = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
+                                       cache=cache)
+    decode = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
+                                      cache=cache)
+    requests = [(steps, prompt, rid) for rid, (steps, prompt)
+                in enumerate(SUBMISSIONS)]
+    walls, runs = [], []
+    reset_counts()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sched = Scheduler(prefill, decode, backend="interpreter",
+                          max_concurrent=5)
+        assert sched.backend.device.type == "cuda"
+        sums, _ = serve(sched, requests)
+        walls.append(time.perf_counter() - t0)
+        runs.append(sums)
+    launched = counts()
+    assert runs[0] == runs[1] == cuda_sums, (runs, cuda_sums)
+    assert sum(launched.values()) == 0, launched
+    log(f"interpreter: reduced cell served on the card twice in "
+        f"{walls[0]:.2f} s and {walls[1]:.2f} s (no kernel launched), "
+        f"checksums equal to each other and to the cuda serve's and the "
+        f"CPU path's: {runs[0]}")
+    env = {name: torch.from_numpy(arr).cuda()
+           for name, arr in decode.make_tensors(3).items()}
+    finals = [decode.run("interpreter", tensors=env).final
+              for _ in range(2)]
+    assert torch.equal(finals[0], finals[1])
+    assert bool(torch.isfinite(finals[0]).all())
+    log(f"interpreter: a decode stream run twice on the card, finals "
+        f"{tuple(finals[0].shape)} torch.equal")
+    gemm = workloads.ci_suite()[0]
+    prog = mapper.search(gemm, cfg).program
+    gen = torch.Generator().manual_seed(5)
+    t = {"I": torch.randn(gemm.m, gemm.k, generator=gen).numpy(),
+         "W": torch.randn(gemm.k, gemm.n, generator=gen).numpy()}
+    errs = backends.cross_check(prog, t)
+    log(f"interpreter: cross_check {gemm} interpreter == cuda == oracle, "
+        f"max |err| {errs}")
+    return launched
+
+
 def fused_runs(cells) -> list[tuple]:
     """(label, programs, adapts, greedy FusedSegment) of every distinct
     fused segment the cells build: their segments and their decode
@@ -961,13 +1033,14 @@ def main(argv) -> int:
     del timer
     torch.cuda.empty_cache()
 
-    # phases 3 to 7, each with the counts set to 0 just before it
+    # phases 3 to 8, each with the counts set to 0 just before it
     op = ops_entry_point(attn, scan)
     del attn, scan
     torch.cuda.empty_cache()
     fw = full_width(gen)
     fp = attention_proj_full_width(fw_dec, gen)
     rw, untuned_sums = reduced_width()
+    interpreter_phase(untuned_sums)
     autotune_phase(untuned_sums, (fw_pre, fw_dec))
 
     src = "src/repro_torch/kernels/csrc/"

@@ -7,6 +7,7 @@ NVIDIA GPU.
     git show 69a36e5:src/repro_torch/kernels/csrc/fused_chain.cu > build/old/fused_chain.cu
     git show 273c856:src/repro_torch/kernels/csrc/flash_attention.cu > build/old/flash_attention.cu
     git show 273c856:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
+    git show bac22f7:src/repro_torch/kernels/csrc/flash_decode_proj.cu > build/old/flash_decode_proj.cu
     python3 compare_kernels.py build/old
 
 Each kernel whose source the directory holds is compared; an earlier
@@ -14,16 +15,23 @@ source must have the C interface of the commit named above:
 ``nest_gemm_f32(x, w, o, M, K, N, out_t, act, stream)`` and
 ``fused_chain_f32`` with one block per M block (commit 69a36e5);
 ``flash_attention_fwd`` and ``flash_decode_f32`` as they are now (commit
-273c856).  They are built with the port's nvcc flags.  On the same
-inputs, for each of ``chip_smoke.py``'s prefill nest_gemm shapes (M > 8)
-and fused_chain cases, this prints whether the two outputs are
-``torch.equal``; for flash_attention at ``chip_smoke.py``'s shape (fp32
-and bf16) and flash_decode at its case and the serves' shapes, whose sum
-order changed, whether they are ``torch.allclose`` at ``check()``'s
-tolerance (fp32: rtol 2e-4, atol 2e-4 * d; bf16 outputs: rtol 2e-2, atol
-2e-1, the card tests') and their largest difference.  Both device times
+273c856); ``flash_decode_proj_f32`` as it is now (commit bac22f7).  They
+are built with the port's nvcc flags.  On the same inputs, for each of
+``chip_smoke.py``'s prefill nest_gemm shapes (M > 8) and fused_chain
+cases, this prints whether the two outputs are ``torch.equal``; for
+flash_attention at ``chip_smoke.py``'s shape (fp32 and bf16),
+flash_decode at its case and the serves' shapes, and flash_decode_proj
+at ``chip_smoke.py``'s K4 case (full-width gemma-7b's attention segment
+at 4 requests, wo 4096 x 3072), whose sum orders changed, whether they
+are ``torch.allclose`` at ``check()``'s tolerance (fp32: rtol 2e-4, atol
+2e-4 * d, or 2e-4 * k_out for the projection; bf16 outputs: rtol 2e-2,
+atol 2e-1, the card tests') and their largest difference.  Both device times
 follow (median [min..max] of the reps, timed as ``chip_smoke.py`` times
 them); the earlier kernel is timed between two timings of this tree's.
+flash_decode_proj is timed once more as a probe, with L2 cleared by
+reading 256 MB in place of ``chip_smoke.py``'s write (``ReadFlush``): the
+write leaves up to 50 MB of dirty lines, whose write-back a kernel that
+streams 50 MB waits for; the difference is that wait.
 Exits non-zero if a kernel fails to build or launch, not on a difference.
 """
 
@@ -49,7 +57,8 @@ OLD_SMEM_LIMIT = 200 * 1024
 
 
 #: the kernels this script can compare, by source name
-NAMES = ("nest_gemm", "fused_chain", "flash_attention", "flash_decode")
+NAMES = ("nest_gemm", "fused_chain", "flash_attention", "flash_decode",
+         "flash_decode_proj")
 
 
 class Old:
@@ -71,7 +80,8 @@ class Old:
         fns = {n: getattr(ctypes.CDLL(libs[n]), sym) for n, sym in (
             ("nest_gemm", "nest_gemm_f32"), ("fused_chain", "fused_chain_f32"),
             ("flash_attention", "flash_attention_fwd"),
-            ("flash_decode", "flash_decode_f32")) if n in libs}
+            ("flash_decode", "flash_decode_f32"),
+            ("flash_decode_proj", "flash_decode_proj_f32")) if n in libs}
         argtypes = {
             "nest_gemm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
             + [ctypes.c_void_p],
@@ -80,6 +90,8 @@ class Old:
             "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p],
             "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p],
+            "flash_decode_proj": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p]}
         for name, fn in fns.items():
             fn.argtypes = argtypes[name]
@@ -88,6 +100,7 @@ class Old:
         self.fc = fns.get("fused_chain")
         self.fa = fns.get("flash_attention")
         self.fd = fns.get("flash_decode")
+        self.fdp = fns.get("flash_decode_proj")
 
     def nest_gemm(self, x, w, *, out_block_t, act):
         m, k = x.shape
@@ -138,6 +151,29 @@ class Old:
                       d, dv, 1.0, build.stream_handle())
         build.raise_on_error(err, "earlier flash_decode")
         return out
+
+    def flash_decode_proj(self, q, k, v, lengths, wo, *, m_out, k_out):
+        """The earlier kernel held its requests' contexts in one block's
+        shared memory, so its group is the old ``proj_group``'s."""
+        b, sq, d = q.shape
+        dv, n_out = v.shape[2], wo.shape[1]
+        base = sq * d + 16 * (d + dv) + sq * 16 + 3 * sq
+        group = min(b, (fa.PROJ_SMEM_LIMIT // 4 - base) // (sq * dv))
+        out = torch.empty((b, m_out, n_out), device=q.device)
+        err = self.fdp(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       lengths.data_ptr(), wo.data_ptr(), out.data_ptr(), b,
+                       sq, k.shape[1], d, dv, m_out, k_out, n_out, group,
+                       1.0, build.stream_handle())
+        build.raise_on_error(err, "earlier flash_decode_proj")
+        return out
+
+
+class ReadFlush(cs.Timer):
+    """``chip_smoke.Timer`` with L2 cleared by reading 256 MB: clean lines,
+    nothing to write back.  A probe, not the yardstick."""
+
+    def clear_l2(self) -> None:
+        self.flush.sum()
 
 
 def compare(label, new, old, timer, tol=None) -> None:
@@ -226,6 +262,23 @@ def compare_decode(old, gen, timer) -> None:
     print(f"  empty kernel (launch floor): {cs.spread(floor)}", flush=True)
 
 
+def compare_decode_proj(old, gen, timer) -> None:
+    dec = ModelExecutable.for_cell("gemma-7b", "decode_tiny",
+                                   feather_config(16, 256),
+                                   cache=ProgramCache(), reduce_model=False)
+    a = cs.attention_proj_inputs(dec, gen)
+    q, k, v, wo, lens = a["q"], a["k"], a["v"], a["wo"], a["lens"]
+    kw = dict(m_out=a["m_out"], k_out=a["k_out"])
+    print(f"flash_decode_proj: chip_smoke.py's K4 case, B {q.shape[0]} "
+          f"lengths {lens.tolist()} adapt ({a['m_out']}, {a['k_out']}) @ wo "
+          f"{tuple(wo.shape)}", flush=True)
+    for label, t in (("K4", timer), ("K4, L2 cleared by reading (probe)",
+                                     ReadFlush())):
+        compare(label, lambda: fa.flash_decode_proj(q, k, v, lens, wo, **kw),
+                lambda: old.flash_decode_proj(q, k, v, lens, wo, **kw), t,
+                (cs.RTOL, cs.RTOL * a["k_out"]))
+
+
 def main(argv) -> int:
     if len(argv) != 1:
         print("usage: compare_kernels.py OLD_CSRC_DIR", file=sys.stderr)
@@ -244,7 +297,8 @@ def main(argv) -> int:
     for name, fn in (("nest_gemm", compare_gemms),
                      ("fused_chain", compare_fused),
                      ("flash_attention", compare_attention),
-                     ("flash_decode", compare_decode)):
+                     ("flash_decode", compare_decode),
+                     ("flash_decode_proj", compare_decode_proj)):
         if name in old.names:
             fn(old, gen, timer)
     print(cs.card(), flush=True)

@@ -6,11 +6,14 @@
     out = be.run_program(plan.program, {"I": i, "W": w})["O"]
 
 Every backend consumes the same tiled Program IR the mapper lowers once
-(``core/program.py``), so the equivalence check
+(``core/program.py``), so the cross-backend equivalence check
 
-    cuda == einsum oracle
+    interpreter == cuda == einsum oracle
 
-ties the compiled kernels and the analytical model to one artifact.
+ties the functional machine, the compiled kernels and the analytical
+model to one artifact.  Both backends run on the card by default and take
+``device="cpu"`` (the interpreter's PyTorch operations, the kernels'
+plain versions) for the tests.
 """
 
 from __future__ import annotations
@@ -25,18 +28,20 @@ from repro_torch.backends.cuda_backend import (CompiledProgram,
                                                CompiledSegment, CudaBackend,
                                                compile_program,
                                                compile_segment)
+from repro_torch.backends.interpreter import InterpreterBackend
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.configs.feather import FeatherConfig
     from repro_torch.core.program import Program
 
 __all__ = [
-    "Backend", "CudaBackend", "CompiledProgram", "CompiledSegment",
-    "compile_program", "compile_segment", "BACKENDS", "get_backend", "run",
-    "cross_check",
+    "Backend", "InterpreterBackend", "CudaBackend", "CompiledProgram",
+    "CompiledSegment", "compile_program", "compile_segment", "BACKENDS",
+    "get_backend", "run", "cross_check",
 ]
 
 BACKENDS: dict[str, type[Backend]] = {
+    InterpreterBackend.name: InterpreterBackend,
     CudaBackend.name: CudaBackend,
 }
 
@@ -62,7 +67,7 @@ def run(program: "Program", tensors, backend: str | Backend = "cuda",
 
 
 def cross_check(program: "Program", tensors,
-                backends: tuple[str, ...] = ("cuda",),
+                backends: tuple[str, ...] = ("interpreter", "cuda"),
                 rtol: float = 2e-4, atol: float = 2e-4,
                 **backend_kwargs) -> dict[str, float]:
     """Run ``program`` on every named backend and compare each output to

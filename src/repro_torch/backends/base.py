@@ -1,11 +1,15 @@
 """Execution-backend interface: how a lowered Program becomes numbers.
 
 A :class:`Backend` consumes the tiled Program IR (``core/program.py``) and
-produces the named output tensors.  One implementation ships so far:
+produces the named output tensors.  Two implementations ship:
 
-  cuda   ``backends.cuda_backend.CudaBackend`` -- compiles the Program's
-         tiling to one hand-written ``nest_gemm`` launch per layer (the
-         plain PyTorch versions with ``device="cpu"``)
+  interpreter  ``backends.interpreter.InterpreterBackend`` -- drives the
+               FEATHER+ functional machine tile by tile (the semantics of
+               every MINISA instruction, ``core/machine.py``)
+  cuda         ``backends.cuda_backend.CudaBackend`` -- compiles the
+               Program's tiling to one hand-written ``nest_gemm`` launch
+               per layer (the plain PyTorch versions with
+               ``device="cpu"``)
 
 Backends are stateful across ``run_program`` calls within one instance:
 chained Programs (paper §IV-G) resolve their elided/retargeted inputs
@@ -13,8 +17,10 @@ against the backend's committed outputs, exactly like the machine's
 on-chip commit.  ``reset()`` clears that state.
 
 Outputs are torch tensors on the backend's ``device``; inputs may be
-tensors or numpy arrays (:meth:`Backend.to_device` moves them).  The
-multi-array (sharded) path is not ported yet.
+tensors or numpy arrays (:meth:`Backend.to_device` moves them).  A
+backend on ``device="cuda"`` (every subclass's default) raises without a
+GPU.  The multi-array (sharded) path is not ported yet (ROADMAP item
+A.7).
 """
 
 from __future__ import annotations
@@ -39,8 +45,19 @@ class Backend(abc.ABC):
     def __init__(self, cfg: "FeatherConfig", device="cpu"):
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}(device='cuda') needs a CUDA device; "
+                f"pass device='cpu' to run on the CPU")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
+        if self.device.type == "cuda" and self.device.index is None:
+            # an explicit index, so resident tensors compare equal to it
+            # and ``to_device`` never copies them
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.outputs: dict[str, torch.Tensor] = {}
-        #: kernel launches performed
+        #: kernel launches performed (only compiled backends bump this;
+        #: the interpreter replays instructions, it does not launch)
         self.n_launches = 0
 
     def to_device(self, arr) -> torch.Tensor:
@@ -61,13 +78,32 @@ class Backend(abc.ABC):
         layer's weight Load 'W', so a single shared dict would silently
         reuse layer 0's weights)."""
 
-    @abc.abstractmethod
     def run_segment(self, segment, tensors=None) -> dict[str, torch.Tensor]:
-        """Execute a :class:`~repro_torch.core.program.FusedSegment` as
-        one launch.  ``tensors`` carries the segment input as ``'I'`` and
-        layer l's weight as ``'W{l}'``."""
+        """Execute a :class:`~repro_torch.core.program.FusedSegment`.
 
-    @abc.abstractmethod
+        ``tensors`` carries the segment input as ``'I'`` and layer l's
+        weight as ``'W{l}'``.  This implementation replays the chained
+        per-layer Programs on this backend (the chain semantics --
+        on-chip commit, elided/retargeted inputs -- come from the
+        Programs themselves), applying the runtime ``adapt`` shape glue
+        at the segment's interior adapt boundaries; the CUDA backend
+        overrides it with one ``fused_chain`` launch."""
+        from repro_torch.runtime.executable import adapt
+        tensors = tensors or {}
+        adapts = getattr(segment, "adapts", None) \
+            or (False,) * len(segment.programs)
+        for layer, prog in enumerate(segment.programs):
+            t = {"W": tensors[f"W{layer}"]}
+            if layer == 0:
+                if "I" in tensors:
+                    t["I"] = tensors["I"]
+            elif adapts[layer]:
+                prev = self.outputs[segment.programs[layer - 1].out_name]
+                g = prog.gemm
+                t["I"] = adapt(prev, g.m, g.k)
+            self.run_program(prog, t)
+        return self.outputs
+
     def run_batched_attention(self, programs, q, kT, v,
                               lengths=None) -> torch.Tensor:
         """Advance a whole decode batch through one attention segment.
@@ -76,7 +112,27 @@ class Backend(abc.ABC):
         attention segment; ``q`` is [B, m, d] stacked per-request
         carriers, ``kT`` [B, d, skv] / ``v`` [B, skv, d_o] the
         per-request gathered KV operands, ``lengths`` the per-request
-        true KV lengths.  Returns the stacked [B, m, d_o] context."""
+        true KV lengths.  Returns the stacked [B, m, d_o] context.
+
+        This implementation replays the chained Program pair once per
+        request -- the sequential oracle the batched kernel must match.
+        The Programs' in-stream softmax spans the full ``skv`` width, so
+        it only accepts full-width lengths; the CUDA backend's override
+        (one ``flash_decode`` launch) handles ragged batches."""
+        qk, pv = programs
+        skv = kT.shape[2]
+        if lengths is not None:
+            lens = torch.as_tensor(lengths).reshape(-1).tolist()
+            if any(int(x) != skv for x in lens):
+                raise ValueError(
+                    f"{type(self).__name__}.run_batched_attention replays "
+                    f"full-width Programs; ragged lengths {lens} need the "
+                    f"cuda backend")
+        outs = []
+        for r in range(q.shape[0]):
+            self.run_program(qk, {"I": q[r], "W": kT[r]})
+            outs.append(self.run_program(pv, {"W": v[r]})[pv.out_name])
+        return torch.stack([self.to_device(o) for o in outs])
 
     def run_batched_attention_proj(self, programs, q, kT, v, wo, *,
                                    m_out: int, k_out: int,

@@ -210,16 +210,6 @@ class CudaBackend(Backend):
     def __init__(self, cfg: "FeatherConfig", *, device="cuda",
                  max_block: int = 2048, compile_cache=None):
         super().__init__(cfg, device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CudaBackend(device='cuda') needs a CUDA device; pass "
-                "device='cpu' to run the kernels' plain versions")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
-        if self.device.type == "cuda" and self.device.index is None:
-            # an explicit index, so resident tensors compare equal to it
-            # and ``to_device`` never copies them
-            self.device = torch.device("cuda", torch.cuda.current_device())
         self.max_block = max_block
         self._committed: torch.Tensor | None = None
         # id(program) alone would go stale once a Program is collected and

@@ -33,11 +33,16 @@ launches = 0                 # flash_decode
 proj_launches = 0            # flash_decode_proj
 attention_launches = 0       # flash_attention
 
-#: dynamic shared memory flash_decode_proj allows itself (its static
-#: arrays take at most 17 KB more, within the 227 KB a block can have)
+#: shared memory a flash_decode_proj block allows itself (within the
+#: 227 KB a block can have)
 PROJ_SMEM_LIMIT = 200 * 1024
-#: flash_decode_proj's KV block (``csrc/flash_decode_proj.cu``)
-_PROJ_BLOCK_KV = 16
+#: flash_decode_proj's ranks a cluster, its wo ring in floats (9 x 32 x
+#: 64) and the projection's part of its scratch (the h window, 8 x 512,
+#: and two inboxes of partial sums, 2 x 8 x 64)
+#: (``csrc/flash_decode_proj.cu``)
+_PROJ_CLUSTER = 4
+_PROJ_RING_FLOATS = 9 * 32 * 64
+_PROJ_WINDOW_FLOATS = 8 * 512 + 2 * 8 * 64
 #: the widest head_dim flash_attention takes
 MAX_HEAD_DIM = 256
 
@@ -98,17 +103,26 @@ def _proj_fn():
     return _PROJ_FN
 
 
+def _proj_tile_keys(d: int, dv: int) -> int:
+    """Keys a K/V tile of ``flash_decode_proj`` (the kernel's
+    ``tile_keys``): up to 16, the tile within 32 KB."""
+    return max(1, min(16, 8192 // (d + dv)))
+
+
 def proj_group(b: int, sq: int, d: int, dv: int) -> int:
-    """How many requests' contexts ``flash_decode_proj`` keeps in shared
-    memory at once (all ``b`` when they fit; raises when not even one
-    does)."""
-    base = sq * d + _PROJ_BLOCK_KV * (d + dv) + sq * _PROJ_BLOCK_KV + 3 * sq
-    fit = (PROJ_SMEM_LIMIT // 4 - base) // (sq * dv)
+    """How many requests' contexts ``flash_decode_proj`` keeps in its
+    clusters' shared memory at once: each of a cluster's ranks holds as
+    many as fit beside the wo ring and a scratch that the attention (q
+    rows, a K/V tile, scores) and the projection (the h window) share.
+    All ``b`` when they fit; raises when a rank cannot hold even one."""
+    attention = sq * d + _proj_tile_keys(d, dv) * (d + dv) + sq * (16 + 3)
+    scratch = -(-max(attention, _PROJ_WINDOW_FLOATS) // 4) * 4
+    fit = (PROJ_SMEM_LIMIT // 4 - _PROJ_RING_FLOATS - scratch) // (sq * dv)
     if fit < 1:
         raise ValueError(f"flash_decode_proj: one context [{sq}, {dv}] with "
                          f"q [{sq}, {d}] exceeds {PROJ_SMEM_LIMIT} bytes of "
                          f"shared memory")
-    return min(b, fit)
+    return min(b, _PROJ_CLUSTER * fit)
 
 
 def flash_decode_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -224,7 +224,18 @@ def test_flash_decode_kernel_matches_plain(cuda, qshape, skv, lengths, bkv):
                          PROJ_CASES + [
     (4, 1, 16, 256, (16, 1, 9, 5), 1, 4096, 3072),   # the main path's
     (4, 16, 16, 256, (16, 1, 9, 5), 1, 4096, 3072),  # 16 query rows
-    (3, 8, 20, 1024, (20, 3, 11), 2, 700, 64),       # one request a group
+    (3, 8, 20, 1024, (20, 3, 11), 2, 700, 64),       # d 1024, 4-key tiles
+    (1, 1, 16, 256, (9,), 1, 4096, 3072),            # one request
+    # k_out off the K slice (ranks of 544 rows, the last one short),
+    # n_out off the float4 grid (scalar copies), a length-0 request
+    (5, 1, 16, 256, (16, 0, 9, 5, 1), 1, 4100, 3070),
+    # past one context a rank: 9 and 17 requests, rows in several passes
+    (9, 1, 16, 64, (16, 1, 9, 5, 0, 3, 16, 2, 7), 2, 4000, 200),
+    (17, 2, 40, 32, tuple(range(0, 40, 3)) + (40,) * 3, 3, 130, 96),
+    (20, 8, 20, 1024, (20, 3, 11) * 6 + (0, 20), 2, 700, 64),  # 5 groups
+    (20, 4, 20, 1024, (20, 3, 11) * 6 + (0, 20), 2, 700, 64),  # 2 groups
+    (2, 1, 8, 16, (8, 3), 1, 5, 6),                  # ranks with no K rows
+    (3, 2, 16, 10, (16, 7, 0), 2, 10, 36),           # q/K/V by 4-byte copies
 ])
 def test_flash_decode_proj_kernel_matches_plain(cuda, b, sq, skv, d, lengths,
                                                 m_out, k_out, n_out):
@@ -241,6 +252,21 @@ def test_flash_decode_proj_kernel_matches_plain(cuda, b, sq, skv, d, lengths,
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * k_out)
     if 0 in lengths:            # a fully masked request projects zeros
         assert not got[list(lengths).index(0)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [3072, 3070])
+def test_flash_decode_proj_kernel_rows_independent_of_batch(cuda, n_out):
+    """Each request's rows of a 4-request launch are bit-equal to the same
+    request launched alone: the K split depends on k_out alone."""
+    q, k, v, wo = (_t(a, cuda) for a in _proj_inputs(4, 1, 16, 256, 4096,
+                                                      n_out))
+    lens = torch.tensor((16, 1, 9, 5), dtype=torch.int32, device=cuda)
+    both = fa.flash_decode_proj(q, k, v, lens, wo, m_out=1, k_out=4096)
+    for r in range(4):
+        alone = fa.flash_decode_proj(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                     lens[r:r + 1], wo, m_out=1, k_out=4096)
+        assert torch.equal(alone[0], both[r]), r
 
 
 @pytest.mark.cuda
@@ -387,3 +413,30 @@ def test_mamba_scan_kernel_matches_plain(cuda, b, l, d, n):
     # versions: bit-equal; y differs only in its sum order over n
     assert torch.equal(h, h_ref)
     torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4 * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn,ah,aw", [((17, 40, 88), 4, 16),
+                                       ((12, 16, 12), 4, 4),
+                                       ((64, 96, 72), 4, 16)])
+def test_interpreter_on_the_card_matches_the_cpu(cuda, mkn, ah, aw):
+    """The functional machine on the card: the same Program and inputs as
+    on the CPU within 2e-4*k, and identical across two runs (its
+    scatter-add, ``index_put_(accumulate=True)``, sums in one order)."""
+    from repro_torch.backends import InterpreterBackend
+    from repro_torch.configs.feather import feather_config
+    from repro_torch.core import mapper
+    m, k, n = mkn
+    cfg = feather_config(ah, aw)
+    prog = mapper.search(mapper.Gemm(m=m, k=k, n=n), cfg).program
+    t = {"I": _np((m, k)), "W": _np((k, n))}
+    runs = [InterpreterBackend(cfg).run_program(prog, t)[prog.out_name]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0].is_cuda and torch.equal(runs[0], runs[1])
+    cpu = InterpreterBackend(cfg, device="cpu").run_program(
+        prog, t)[prog.out_name]
+    torch.testing.assert_close(runs[0].cpu(), cpu, rtol=2e-4,
+                               atol=2e-4 * k)
+    torch.testing.assert_close(cpu, _t(t["I"]) @ _t(t["W"]), rtol=2e-4,
+                               atol=2e-4 + 2e-4 * k)

@@ -42,14 +42,23 @@ def test_entry_points_default_to_the_card():
     (nothing falls back to the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from repro_torch.backends import CudaBackend, get_backend
+    from repro_torch.backends import (CudaBackend, InterpreterBackend,
+                                      get_backend)
     from repro_torch.configs.feather import feather_config
+    from repro_torch.core import FeatherMachine
     from repro_torch.runtime import ModelExecutable, ProgramCache, Scheduler
     cfg = feather_config(4, 16)
     with pytest.raises(RuntimeError, match="CUDA device"):
         CudaBackend(cfg)
     with pytest.raises(RuntimeError, match="CUDA device"):
         get_backend("cuda", cfg)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        InterpreterBackend(cfg)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        get_backend("interpreter", cfg)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        FeatherMachine(cfg)
+    assert FeatherMachine(cfg, device="cpu").device.type == "cpu"
     cache = ProgramCache()
     pre = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
                                    cache=cache)
@@ -59,6 +68,10 @@ def test_entry_points_default_to_the_card():
         dec.make_backend("cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
         Scheduler(pre, dec)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Scheduler(pre, dec, backend="interpreter")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        dec.run("interpreter")
     be = CudaBackend(cfg, device="cpu")
     assert be.device.type == "cpu" and be.name == "cuda"
 

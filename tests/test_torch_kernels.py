@@ -173,11 +173,12 @@ def test_new_kernel_launchers_refuse_cpu_tensors():
 
 
 def test_flash_decode_proj_shared_memory_groups():
-    """The wrapper keeps every request's context in shared memory when
-    they fit and takes them in groups when not; one that cannot fit at
-    all is refused before any launch."""
+    """The wrapper keeps every request's context in its clusters' shared
+    memory (4 ranks, each holding as many as fit) when they fit and takes
+    them in groups when not; one that cannot fit at all is refused before
+    any launch."""
     assert fa.proj_group(4, 16, 256, 256) == 4       # the main path
-    assert fa.proj_group(3, 8, 1024, 1024) == 1
+    assert fa.proj_group(20, 4, 1024, 1024) == 16    # 4 contexts a rank
     with pytest.raises(ValueError, match="shared memory"):
         fa.proj_group(1, 64, 1024, 1024)
 

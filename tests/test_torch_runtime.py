@@ -188,6 +188,91 @@ def test_checksums_match_reference_oracle(cells, oracle_checksums, batch,
             tdec.batch_plan(1).launches_per_tick
 
 
+#: the interpreter rows of tests/test_batched_decode.py: the sequential
+#: oracle, batched per-layer programs (two batch compositions), a KV pool
+#: holding one request, a one-chunk token budget
+INTERP_ROWS = [(False, 5, "none"), (True, 5, "none"), (True, 3, "none"),
+               (False, 4, "kv_one"), (True, 5, "budget")]
+
+
+@pytest.mark.parametrize("batch,conc,limit", INTERP_ROWS)
+def test_interpreter_checksums_match_reference_oracle(cells, oracle_checksums,
+                                                      batch, conc, limit):
+    """The port's interpreter serves the cell with per-request checksums
+    bit-equal to the reference's interpreter oracle, and the same launch
+    accounting as the reference's interpreter serve (it launches
+    nothing)."""
+    (jpre, jdec), (tpre, tdec) = cells
+    kw = dict(batch_decode=batch, use_fused=False, max_concurrent=conc)
+    if limit == "kv_one":
+        kw["kv_pages"] = TScheduler(tpre, tdec, device="cpu") \
+            .kv_pool.pages_per_request
+    elif limit == "budget":
+        kw["token_budget"] = tpre.tokens or 1
+    sched = TScheduler(tpre, tdec, backend="interpreter", device="cpu", **kw)
+    assert sched.backend.name == "interpreter"
+    assert not sched.use_fused
+    sums, rep = _serve(sched)
+    assert sums == oracle_checksums
+    assert rep.batch_decode == batch
+    _, jrep = _serve(JScheduler(jpre, jdec, backend="interpreter", **kw))
+    assert rep.launches_per_decode_tick == jrep.launches_per_decode_tick
+    assert rep.decode_launches == jrep.decode_launches == 0
+    if limit == "kv_one":
+        assert rep.kv["admit_stalls"] > 0
+        assert rep.kv["high_water_pages"] == kw["kv_pages"]
+
+
+def test_interpreter_defaults_to_the_per_program_path(cells):
+    """Like the reference, the interpreter backend defaults to sequential
+    per-Program decode (its machine state is the chain semantics)."""
+    _, (tpre, tdec) = cells
+    sched = TScheduler(tpre, tdec, backend="interpreter", device="cpu")
+    assert not sched.use_fused and not sched.batch_decode
+
+
+def test_interpreter_run_batch_matches_sequential_and_reference(cells):
+    """Stacked-M execution on the interpreter equals its per-request runs
+    and the reference's interpreter ``run_batch``."""
+    (_, jdec), (_, tdec) = cells
+    weights = jdec.make_tensors(0, kinds=("weight",))
+    envs = []
+    for r in range(5):
+        env = dict(weights)
+        env.update(jdec.make_tensors(10 + r, kinds=("dynamic",)))
+        env.update(jdec.make_tensors(100 + r, kinds=("input",)))
+        envs.append(env)
+    got = tdec.run_batch("interpreter", envs, fused=False, device="cpu")
+    want = jdec.run_batch("interpreter", envs, fused=False)
+    k_max = max(s.op.gemm.k for s in tdec.steps)
+    for r in range(5):
+        seq = tdec.run("interpreter", tensors=envs[r], device="cpu").final
+        np.testing.assert_allclose(got[r].numpy(), seq.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[r].numpy(), want[r], rtol=2e-4,
+                                   atol=2e-4 * k_max)
+
+
+@pytest.mark.parametrize("shape", ["prefill_tiny", "decode_tiny"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_interpreter_run_checks_against_the_stream_oracle(cells, shape,
+                                                          fused):
+    """``ModelExecutable.run("interpreter", check=True)``: every step (or
+    fused segment, which the interpreter replays Program by Program)
+    against the einsum replay, the final carrier equal to the reference
+    interpreter's."""
+    (jpre, jdec), (tpre, tdec) = cells
+    jex, tex = (jpre, tpre) if shape == "prefill_tiny" else (jdec, tdec)
+    env = jex.make_tensors(7)
+    got = tex.run("interpreter", tensors=env, check=True, fused=fused,
+                  device="cpu")
+    want = jex.run("interpreter", tensors=env, fused=fused)
+    assert got.fused_segments == want.fused_segments
+    k_max = max(s.op.gemm.k for s in tex.steps)
+    np.testing.assert_allclose(got.final.numpy(), np.asarray(want.final),
+                               rtol=2e-4, atol=2e-4 * k_max)
+
+
 def test_scheduler_defaults_key_on_the_cuda_backend(cells):
     """The fused and batched fast paths default on for ``"cuda"`` (the
     reference keys them on ``"pallas"``), and a warm cache costs no
