@@ -44,6 +44,19 @@ Phases (any failure exits non-zero; no phase catches its own):
      card, a warm second pass doing no work, the tuned serve's checksums
      equal to the untuned serve's, and no segment legal to tune at full
      width.
+  9. the multi-array path (``dist.ArrayMesh``; one card, so the arrays'
+     shards run one after another): ``backends.cross_check`` of
+     interpreter == cuda == oracle sharded on 2 and 4 arrays, every axis,
+     both dataflows; nest_gemm at every full-width shard shape against
+     its plain version; full-width gemma-7b on 4 arrays served by the
+     Scheduler on phase 4's resident weights (nest_gemm launches equal to the shards the path runs,
+     repeat-identical checksums, weight slices copied once, a checked
+     decode stream, per-array bytes summing to the total); the reduced
+     cell on 4 and 2 arrays (each array's fused segment against its plain
+     version; checksums equal to the CPU path's and the flat serve's, one
+     fused_chain launch an array for each sharded fused segment); chaos on
+     the card, flat and with an array going down; a serve resumed from a
+     snapshot file.
 
 Ends with the ``kernels`` JSON line, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
@@ -57,6 +70,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -69,8 +83,12 @@ from repro_torch import backends  # noqa: E402
 from repro_torch.backends import (Backend, CudaBackend,  # noqa: E402
                                   compile_program, compile_segment)
 from repro_torch.configs.feather import feather_config  # noqa: E402
-from repro_torch.core import mapper, workloads  # noqa: E402
+from repro_torch.core import isa, mapper, workloads  # noqa: E402
 from repro_torch.core import program as programlib  # noqa: E402
+from repro_torch.dist import ArrayMesh  # noqa: E402
+from repro_torch.dist.elastic import (load_serving_snapshot,  # noqa: E402
+                                      save_serving_snapshot)
+from repro_torch.faults import FaultInjector, FaultPlan  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_chain as fc  # noqa: E402
@@ -93,8 +111,16 @@ REPS = 10
 SUBMISSIONS = [(3, None), (1, None), (2, 64), (4, 32), (2, None)]
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def stage(name: str) -> None:
+    """Log the seconds since the script started, as ``name`` begins."""
+    log(f"-- {name} at {time.perf_counter() - _T0:.1f} s")
 
 
 def card() -> str:
@@ -746,9 +772,10 @@ def full_width(gen) -> dict:
         assert torch.equal(b_, s_), float((b_ - s_).abs().max())
     log(f"full width: run_batch bit-equal to sequential run over "
         f"{len(seq)} requests, finals of shape {tuple(seq[0].shape)}")
+    weights = (sched.prefill_weights, sched.decode_weights)
     del sched, envs, batched, seq
     torch.cuda.empty_cache()
-    return launched
+    return launched, sums, tick_ms, weights
 
 
 def attention_proj_full_width(decode, gen) -> dict:
@@ -975,6 +1002,341 @@ def autotune_phase(untuned_sums: dict, fw_cells) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the multi-array path
+# ---------------------------------------------------------------------------
+
+#: ci_suite GEMMs the sharded cross_check runs: a bconv and an NTT whose
+#: searched Programs are WO-S, a gpt-oss projection and the conv whose
+#: searched Programs are IO-S
+MESH_CHECK_GEMMS = (0, 41, 54, 58)
+
+
+def mesh_cross_check() -> None:
+    """``backends.cross_check`` sharded on the card: interpreter == cuda
+    == oracle on 2 and 4 arrays along every axis, for each GEMM's
+    searched Program and a forced WO-S and IO-S lowering.  The inputs are
+    numpy arrays, so every N split cuts columns of a fresh device tensor
+    (a view that is not contiguous) for nest_gemm."""
+    cfg = feather_config(4, 16)
+    suite = workloads.ci_suite()
+    worst: dict[str, float] = {}
+    n_runs = 0
+    t0 = time.perf_counter()
+    for idx in MESH_CHECK_GEMMS:
+        g = suite[idx]
+        progs = [mapper.search(g, cfg).program] + [
+            programlib.lower(g, mapper.MappingChoice(
+                df=df, vn=4, m_t=8, k_t=8, n_t=8, n_kg=1, n_nb=1, dup=4),
+                cfg) for df in (isa.Dataflow.WOS, isa.Dataflow.IOS)]
+        gen = torch.Generator().manual_seed(idx)
+        t = {"I": torch.randn(g.m, g.k, generator=gen).numpy(),
+             "W": torch.randn(g.k, g.n, generator=gen).numpy()}
+        for prog in progs:
+            for n in (2, 4):
+                for axis in ("m", "n", "k"):
+                    errs = backends.cross_check(prog, t, mesh=ArrayMesh(n),
+                                                axis=axis)
+                    for name, err in errs.items():
+                        worst[name] = max(worst.get(name, 0.0), err)
+                    n_runs += 1
+    log(f"mesh cross_check: {n_runs} sharded programs ({len(MESH_CHECK_GEMMS)}"
+        f" ci_suite GEMMs x searched, forced WO-S and IO-S x 2 and 4 arrays "
+        f"x m, n, k) interpreter == cuda == oracle on the card in "
+        f"{time.perf_counter() - t0:.1f} s, max |err| {worst}")
+
+
+def shard_shapes(prefill, decode) -> list[tuple]:
+    """Distinct (M, K, N, out_block_t, act, bk) the shards of the mesh
+    streams launch on nest_gemm, with how many times one decode step and
+    one prefill pass launch each."""
+    shapes: dict[tuple, list[int]] = {}
+    for ex, col in ((decode, 0), (prefill, 1)):
+        for step in ex.steps:
+            for shard in step.sharded.shards:
+                comp = compile_program(shard.program)
+                g = shard.program.gemm
+                key = (g.m, g.k, g.n, comp.out_block_t, comp.fused_act,
+                       comp.bk)
+                shapes.setdefault(key, [0, 0])[col] += 1
+    return [(*key, *n) for key, n in shapes.items()]
+
+
+def check_shard_shapes(shapes, timer, gen) -> None:
+    """nest_gemm at every shard shape of the 4-array full-width streams
+    against its plain version, timed; the decode step's shards summed."""
+    log("K1 nest_gemm at the 4-array shard shapes: M K N out_t act | "
+        "calls/step calls/prefill | max_err | ms [min..max] plain_ms "
+        "library_ms bound_ms")
+    step = {"ms": 0.0, "bytes": 0.0, "flops": 0.0, "plain": 0.0, "lib": 0.0}
+    for m, k, n, out_t, act, bk, per_step, per_pass in shapes:
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        w = torch.randn(k, n, device="cuda", generator=gen)
+        got = ng.nest_gemm(x, w, out_block_t=out_t, act=act)
+        want = ref.nest_gemm_ref(x, w, bk=bk, out_block_t=out_t, act=act)
+        err = check(f"nest_gemm shard {(m, k, n, out_t, act)}", got, want, k)
+        ms = timer(lambda: ng.nest_gemm(x, w, out_block_t=out_t, act=act))
+        plain = timer(lambda: ref.nest_gemm_ref(x, w, bk=bk,
+                                                out_block_t=out_t, act=act))
+        wt, xt = w.t(), x.t()
+        lib = timer((lambda: torch.matmul(wt, xt)) if out_t
+                    else (lambda: torch.matmul(x, w)))
+        nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * k * n
+        log(f"  {m} {k} {n} {out_t} {act} | {per_step} {per_pass} | "
+            f"{err:.3g} | {spread(ms)} {plain['ms']:.4f} {lib['ms']:.4f} "
+            f"{bound(nbytes, flops)[0]:.4f}")
+        for key, val in (("ms", ms["ms"]), ("bytes", nbytes),
+                         ("flops", flops), ("plain", plain["ms"]),
+                         ("lib", lib["ms"])):
+            step[key] += per_step * val
+        del x, w, got, want
+    log(f"K1 nest_gemm: a 4-array decode step's shards, one after another: "
+        f"{step['ms']:.4f} ms (plain {step['plain']:.4f}, library "
+        f"{step['lib']:.4f}), bound "
+        f"{bound(step['bytes'], step['flops'])[0]:.4f}")
+    torch.cuda.empty_cache()
+
+
+def shard_launches(ex, fused: bool) -> tuple[int, int]:
+    """(nest_gemm, fused_chain) launches one pass of the mesh stream
+    ``ex`` makes: one fused_chain an array for each sharded fused segment
+    (when ``fused``), one nest_gemm a shard of every other step, two on
+    the wide-weight path.  An N split's W is a fresh contiguous copy and
+    an M split's the whole weight; a K split's is the row slice at k0
+    rows, whose alignment the wide path checks."""
+    n_ng = n_fc = 0
+    for seg in ex.segments:
+        if fused and seg.fused is not None:
+            n_fc += seg.fused.n_arrays
+            continue
+        for i in seg.indices:
+            sharded = ex.steps[i].sharded
+            for shard in sharded.shards:
+                g = shard.program.gemm
+                w_offset = 4 * shard.k0 * sharded.base.gemm.n
+                n_ng += 2 if ng.scratch_floats(g.m, g.k, g.n, w_offset) else 1
+    return n_ng, n_fc
+
+
+def mesh_full_width(gen, flat_sums: dict, flat_tick_ms: float,
+                    weights: tuple) -> dict:
+    """Full-width gemma-7b on 4 arrays, served by the cuda Scheduler on
+    the resident weights of phase 4's flat one."""
+    cfg = feather_config(16, 256)
+    cache = ProgramCache()
+    mesh = ArrayMesh(4)
+    t0 = time.perf_counter()
+    prefill = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
+                                       cache=cache, reduce_model=False,
+                                       mesh=mesh)
+    decode = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
+                                      cache=cache, reduce_model=False,
+                                      mesh=mesh)
+    for ex in (prefill, decode):
+        assert ex.describe()["n_sharded"] == len(ex.steps), ex.describe()
+    log(f"mesh full width: executables built on {mesh} in "
+        f"{time.perf_counter() - t0:.2f} s; split axes (prefill | decode) "
+        + ", ".join(f"{p.op.gemm.name} {p.sharded.axis}|{d.sharded.axis}"
+                    for p, d in zip(prefill.steps, decode.steps)))
+    timer = Timer()
+    check_shard_shapes(shard_shapes(prefill, decode), timer, gen)
+    del timer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sched = Scheduler(prefill, decode, max_concurrent=4, weights=weights)
+    assert sched.use_fused and not sched.batch_decode
+    log(f"mesh full width: scheduler init on phase 4's weights "
+        f"{time.perf_counter() - t0:.1f} s")
+    be = sched.backend
+    requests = [(8, None, seed) for seed in range(4)]
+    reset_counts()
+    sums, rep = serve(sched, requests)
+    launched = counts()
+    (pre_ng, pre_fc), (dec_ng, dec_fc) = (shard_launches(ex, sched.use_fused)
+                                          for ex in (prefill, decode))
+    passes = len(requests)          # one prompt chunk a request
+    want = {"nest_gemm": passes * pre_ng + rep.decode_steps_total * dec_ng,
+            "fused_chain": passes * pre_fc + rep.decode_steps_total * dec_fc}
+    log(f"mesh full width: launches in the serve {launched}; worked out "
+        f"from the shards: {want} ({passes} prefill passes of {pre_ng}, "
+        f"{rep.decode_steps_total} decode steps of {dec_ng})")
+    assert launched["nest_gemm"] == want["nest_gemm"] > 0, (launched, want)
+    assert launched["fused_chain"] == want["fused_chain"], (launched, want)
+    assert sum(launched.values()) == sum(want.values()), launched
+    held, copies = be.held_slices(), be.n_slice_copies
+    mem = torch.cuda.memory_allocated()
+    sums2, rep2 = serve(sched, requests)
+    assert sums == sums2, (sums, sums2)
+    again = be.held_slices()
+    assert again.keys() == held.keys() and all(
+        again[k] is held[k] for k in held), "a weight slice was copied again"
+    tick_ms = rep.decode_wall_s / max(rep.decode_ticks, 1) * 1e3
+    tick2 = rep2.decode_wall_s / max(rep2.decode_ticks, 1) * 1e3
+    log(f"mesh full width: {rep.decode_ticks} decode ticks of "
+        f"{rep.decode_steps_total / rep.decode_ticks:.1f} requests (each "
+        f"request's step on its own: no batched decode on a mesh), "
+        f"{tick_ms:.3f} ms a tick (repeat {tick2:.3f}) against the flat "
+        f"serve's {flat_tick_ms:.3f} (phase 4); TTFT p50 "
+        f"{rep.summary()['ttft_p50_s']:.3f} s; launches_per_decode_tick as "
+        f"reported {rep.launches_per_decode_tick} (the JAX package's "
+        f"count, which leaves out a plain sharded step's launches)")
+    log(f"mesh full width: {len(held)} weight slices held "
+        f"({sum(c.numel() for c in held.values()) * 4 / 2**30:.2f} GiB), "
+        f"each copied once ({copies} copies in the first serve, KV "
+        f"operands' included; {be.n_slice_copies - copies} in the repeat, "
+        f"all KV); device memory after the serve "
+        f"{mem / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"mesh full width: checksums {sums} (repeat identical); equal to "
+        f"the flat serve's (phase 4): {sums == flat_sums}")
+    env = dict(sched.decode_weights)
+    for name, (shape, kind) in decode.tensor_specs().items():
+        if kind != "weight":
+            env[name] = torch.randn(*shape, device="cuda", generator=gen)
+    res = decode.run(be, tensors=env, check=True)
+    assert res.checked and bool(torch.isfinite(res.final).all())
+    stats = decode.perf_stats()
+    per = stats["per_array_minisa_bytes"]
+    assert len(per) == 4 and all(b > 0 for b in per), per
+    assert abs(sum(per) - stats["minisa_bytes"]) <= \
+        1e-9 * stats["minisa_bytes"], (per, stats["minisa_bytes"])
+    log(f"mesh full width: decode stream run(check=True) on the card held "
+        f"every step to the CPU oracle; per-array MINISA bytes {per} sum "
+        f"to {stats['minisa_bytes']} (load imbalance "
+        f"{stats['load_imbalance']:.3f})")
+    del sched, be, env, res, held, again
+    torch.cuda.empty_cache()
+    return launched
+
+
+def mesh_reduced(gen, flat_sums: dict, floor_ms: float) -> dict:
+    """The reduced cell on 4 and 2 arrays: each array's fused segment
+    against its plain version, then the serve: checksums equal to the
+    CPU path's and the flat serve's, fused_chain once an array for each
+    sharded fused segment."""
+    cfg = feather_config(4, 16)
+    cache = ProgramCache()
+    requests = [(steps, prompt, rid) for rid, (steps, prompt)
+                in enumerate(SUBMISSIONS)]
+    launched = {}
+    timer = Timer()
+    for n in (4, 2):
+        mesh = ArrayMesh(n)
+        prefill = ModelExecutable.for_cell("gemma-7b", "prefill_tiny", cfg,
+                                           cache=cache, mesh=mesh)
+        decode = ModelExecutable.for_cell("gemma-7b", "decode_tiny", cfg,
+                                          cache=cache, mesh=mesh)
+        fused = [s.fused for s in prefill.segments
+                 if isinstance(s.fused, programlib.ShardedFusedSegment)]
+        assert fused and all(f.n_arrays == n for f in fused), fused
+        cases = {}
+        for seg in fused:
+            for fseg in seg.array_segments:
+                c = compile_segment(fseg)
+                cases.setdefault((c.dims, c.bm, c.layer_bks), (
+                    f"{mesh} array segment", c.dims, c.bm, c.layer_bks,
+                    c.acts, c.adapts))
+        check_fused_chain(list(cases.values()), timer, gen, floor_ms)
+        sched = Scheduler(prefill, decode, max_concurrent=5)
+        reset_counts()
+        sums, rep = serve(sched, requests)
+        launched = counts()
+        chunk = prefill.tokens
+        chunks = sum(-(-(prompt or chunk) // chunk)
+                     for _, prompt, _ in requests)
+        (pre_ng, pre_fc), (dec_ng, dec_fc) = (
+            shard_launches(ex, sched.use_fused) for ex in (prefill, decode))
+        want = {"nest_gemm": chunks * pre_ng + rep.decode_steps_total * dec_ng,
+                "fused_chain": chunks * pre_fc
+                + rep.decode_steps_total * dec_fc}
+        assert launched["fused_chain"] == want["fused_chain"] >= n, \
+            (launched, want)
+        assert launched["nest_gemm"] == want["nest_gemm"], (launched, want)
+        assert sum(launched.values()) == sum(want.values()), launched
+        cpu_sums, _ = serve(Scheduler(prefill, decode, max_concurrent=5,
+                                      device="cpu"), requests)
+        assert sums == cpu_sums == flat_sums, (sums, cpu_sums, flat_sums)
+        log(f"mesh reduced on {mesh}: launches {launched} (worked out "
+            f"{want}: {chunks} prompt chunks, {len(fused)} sharded fused "
+            f"segment(s) of {n} arrays, {rep.decode_steps_total} decode "
+            f"steps); checksums equal to the CPU path's and the flat "
+            f"serve's: {sums}")
+    return launched
+
+
+def chaos_and_resume() -> None:
+    """The standard fault plans on the cuda backend at reduced width
+    (flat, and on 2 arrays with one going down), then a serve stopped
+    after 2 ticks, saved, loaded and resumed."""
+    cfg = feather_config(4, 16)
+    requests = [(4, None, None)] * 3
+
+    def scheduler(cache, mesh=None, faults=None):
+        prefill, decode = (ModelExecutable.for_cell(
+            "gemma-7b", shape, cfg, cache=cache, mesh=mesh)
+            for shape in ("prefill_tiny", "decode_tiny"))
+        return Scheduler(prefill, decode, max_concurrent=2, seed=7,
+                         faults=faults)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (1, 2):
+            mesh = ArrayMesh(n) if n > 1 else None
+            cache = (ProgramCache(path=os.path.join(tmp, "cache.bin"))
+                     if n == 1 else ProgramCache())
+            base, base_rep = serve(scheduler(cache, mesh), requests)
+            injector = FaultInjector(FaultPlan.standard(0, n_arrays=n))
+            sums, rep = serve(scheduler(cache, mesh, injector), requests)
+            res = rep.summary()["resilience"]
+            assert sums == base, (sums, base)
+            assert injector.unrecovered() == 0 and res["retries_total"] > 0
+            if n == 1:
+                assert set(injector.injected) == {
+                    "launch_transient", "launch_nan", "kv_exhaust",
+                    "cache_corrupt"}, injector.injected
+            else:
+                assert injector.injected.get("array_down") == 1
+                assert (base_rep.n_arrays, rep.n_arrays) == (2, 1)
+                assert res["mesh_degraded"] == 1
+            log(f"chaos on the card ({n} array{'s' if n > 1 else ''}): "
+                f"injected {injector.injected}, 0 unrecovered, "
+                f"{res['retries_total']} retries, mesh degraded "
+                f"{res['mesh_degraded']} time(s); checksums equal to the "
+                f"fault-free serve's: {sums}")
+
+        cache = ProgramCache()
+        full, _ = serve(scheduler(cache), requests + [(4, None, None)])
+        first = scheduler(cache)
+        for _ in range(4):
+            first.submit(decode_steps=4)
+        first.run(max_ticks=2)
+        path = os.path.join(tmp, "serve.snap")
+        save_serving_snapshot(path, first.snapshot())
+        assert [p for p in os.listdir(tmp) if p.endswith(".tmp")] == []
+        resumed = scheduler(cache)
+        assert resumed.restore(load_serving_snapshot(path)) > 0
+        rep = resumed.run()
+        torch.cuda.synchronize()
+        sums = {i: r.state_checksum for i, r in
+                enumerate(sorted(rep.requests, key=lambda r: r.rid))}
+        assert sums == full, (sums, full)
+        log(f"snapshot: a serve stopped after 2 ticks, saved (no .tmp left),"
+            f" loaded and resumed in a fresh Scheduler finishes with the "
+            f"uninterrupted checksums {sums}")
+
+
+def mesh_phase(gen, flat_sums: dict, flat_tick_ms: float, weights: tuple,
+               reduced_sums: dict, floor_ms: float) -> None:
+    stage("phase 9: sharded cross_checks")
+    mesh_cross_check()
+    stage("phase 9: full width on 4 arrays")
+    mesh_full_width(gen, flat_sums, flat_tick_ms, weights)
+    stage("phase 9: reduced cell on 4 and 2 arrays")
+    mesh_reduced(gen, reduced_sums, floor_ms)
+    stage("phase 9: chaos and resume")
+    chaos_and_resume()
+
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py", file=sys.stderr)
@@ -1005,6 +1367,7 @@ def main(argv) -> int:
                 log(f"  {n} {entry}: {line.strip()}")
 
     # phase 2
+    stage("phase 2: kernels against their plain versions")
     clocks("before phase 2")
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
@@ -1034,14 +1397,24 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # phases 3 to 8, each with the counts set to 0 just before it
+    stage("phase 3: ops entry point")
     op = ops_entry_point(attn, scan)
     del attn, scan
     torch.cuda.empty_cache()
-    fw = full_width(gen)
+    stage("phase 4: full-width serve")
+    fw, fw_sums, fw_tick_ms, fw_weights = full_width(gen)
+    stage("phase 5: full-width attention projection")
     fp = attention_proj_full_width(fw_dec, gen)
+    stage("phase 6: reduced serve")
     rw, untuned_sums = reduced_width()
+    stage("phase 7: interpreter on the card")
     interpreter_phase(untuned_sums)
+    stage("phase 8: autotune")
     autotune_phase(untuned_sums, (fw_pre, fw_dec))
+    mesh_phase(gen, fw_sums, fw_tick_ms, fw_weights, untuned_sums,
+               k3["floor_ms"])
+    del fw_weights
+    torch.cuda.empty_cache()
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -1066,6 +1439,7 @@ def main(argv) -> int:
                      "ms_max": stats["ms_max"],
                      "plain_ms": stats["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": stats["library_ms"]})
+    stage("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ Ported so far (the serving main path):
   core      MINISA ISA, layouts, perf model, Program IR, mapper, planner
   faults    fault plans and the injector the scheduler wires in
   kernels   hand-written CUDA kernels (``nest_gemm``, ``fused_chain``,
-            ``flash_decode``) and their plain PyTorch versions
-  backends  ``CudaBackend`` (registry name ``"cuda"``)
+            ``flash_decode``, ``flash_decode_proj``, ``flash_attention``,
+            ``mamba_scan``) and their plain PyTorch versions
+  backends  ``CudaBackend`` (registry name ``"cuda"``) and
+            ``InterpreterBackend`` (``"interpreter"``)
   runtime   ProgramCache, ModelExecutable, Scheduler
+  dist      ArrayMesh, the GEMM axis policy, serving snapshots
 
 Entry points run on the card by default (``device="cuda"``); the plain
 versions run only for tensors on the CPU (``device="cpu"``).

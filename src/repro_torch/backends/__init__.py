@@ -37,7 +37,7 @@ if TYPE_CHECKING:  # pragma: no cover
 __all__ = [
     "Backend", "InterpreterBackend", "CudaBackend", "CompiledProgram",
     "CompiledSegment", "compile_program", "compile_segment", "BACKENDS",
-    "get_backend", "run", "cross_check",
+    "get_backend", "run", "cross_check", "run_sharded",
 ]
 
 BACKENDS: dict[str, type[Backend]] = {
@@ -66,13 +66,30 @@ def run(program: "Program", tensors, backend: str | Backend = "cuda",
     return be.run_program(program, tensors)
 
 
+def run_sharded(program: "Program", tensors, mesh,
+                backend: str | Backend = "cuda", axis: str | None = None,
+                **backend_kwargs) -> dict[str, torch.Tensor]:
+    """One-shot sharded execution: partition ``program`` over ``mesh``'s
+    arrays (``core/program.shard_program``) and run on a fresh backend."""
+    from repro_torch.core import program as programlib
+    sharded = programlib.shard_program(program, mesh, axis=axis)
+    be = get_backend(backend, program.cfg, **backend_kwargs)
+    return be.run_sharded(sharded, tensors)
+
+
 def cross_check(program: "Program", tensors,
                 backends: tuple[str, ...] = ("interpreter", "cuda"),
                 rtol: float = 2e-4, atol: float = 2e-4,
+                mesh=None, axis: str | None = None,
                 **backend_kwargs) -> dict[str, float]:
     """Run ``program`` on every named backend and compare each output to
     the einsum oracle (fp32-accumulate tolerance); returns the max abs
-    error per backend and raises on mismatch."""
+    error per backend and raises on mismatch.
+
+    With ``mesh`` (a ``dist.ArrayMesh``), each backend executes the
+    Program *sharded* across the mesh's arrays instead (``axis`` forces
+    the split rank) -- the oracle is unchanged, which is exactly the
+    sharded-equivalence contract."""
     g = program.gemm
     i = np.asarray(tensors["I"], np.float32)
     w = np.asarray(tensors["W"], np.float32)
@@ -82,8 +99,12 @@ def cross_check(program: "Program", tensors,
     oracle = oracle.numpy()
     errs: dict[str, float] = {}
     for name in backends:
-        out = run(program, tensors, backend=name, **backend_kwargs)[
-            program.out_name].cpu().numpy()
+        if mesh is not None:
+            res = run_sharded(program, tensors, mesh, backend=name,
+                              axis=axis, **backend_kwargs)
+        else:
+            res = run(program, tensors, backend=name, **backend_kwargs)
+        out = res[program.out_name].cpu().numpy()
         np.testing.assert_allclose(out, oracle, rtol=rtol,
                                    atol=atol + rtol * g.k,
                                    err_msg=f"backend {name!r} diverged from "

@@ -19,8 +19,16 @@ on-chip commit.  ``reset()`` clears that state.
 Outputs are torch tensors on the backend's ``device``; inputs may be
 tensors or numpy arrays (:meth:`Backend.to_device` moves them).  A
 backend on ``device="cuda"`` (every subclass's default) raises without a
-GPU.  The multi-array (sharded) path is not ported yet (ROADMAP item
-A.7).
+GPU.
+
+Multi-array execution: ``run_program`` also accepts a
+:class:`~repro_torch.core.program.ShardedProgram` (dispatching to
+:meth:`run_sharded`).  This implementation keeps one sub-backend per
+logical array -- each array is its own machine with its own buffers and
+committed state, on this backend's device -- runs every shard on its
+array's executor, one after another, and assembles the output
+(disjoint slices along the split rank, or a sum of K-partitioned
+partial products) before applying any hoisted epilogue activation.
 """
 
 from __future__ import annotations
@@ -59,6 +67,8 @@ class Backend(abc.ABC):
         #: kernel launches performed (only compiled backends bump this;
         #: the interpreter replays instructions, it does not launch)
         self.n_launches = 0
+        # one executor per logical array, created on first sharded run
+        self._shard_subs: dict[int, "Backend"] = {}
 
     def to_device(self, arr) -> torch.Tensor:
         """``arr`` (tensor or array) as a float32 tensor on ``device``."""
@@ -76,7 +86,10 @@ class Backend(abc.ABC):
         ``run_program`` call per layer on the same backend instance,
         passing each layer's own tensors (the default lowering names every
         layer's weight Load 'W', so a single shared dict would silently
-        reuse layer 0's weights)."""
+        reuse layer 0's weights).
+
+        A :class:`~repro_torch.core.program.ShardedProgram` argument
+        dispatches to :meth:`run_sharded`."""
 
     def run_segment(self, segment, tensors=None) -> dict[str, torch.Tensor]:
         """Execute a :class:`~repro_torch.core.program.FusedSegment`.
@@ -87,7 +100,12 @@ class Backend(abc.ABC):
         on-chip commit, elided/retargeted inputs -- come from the
         Programs themselves), applying the runtime ``adapt`` shape glue
         at the segment's interior adapt boundaries; the CUDA backend
-        overrides it with one ``fused_chain`` launch."""
+        overrides it with one ``fused_chain`` launch.  A
+        :class:`~repro_torch.core.program.ShardedFusedSegment` dispatches
+        to the per-array path."""
+        from repro_torch.core.program import ShardedFusedSegment
+        if isinstance(segment, ShardedFusedSegment):
+            return self._run_sharded_segment(segment, tensors)
         from repro_torch.runtime.executable import adapt
         tensors = tensors or {}
         adapts = getattr(segment, "adapts", None) \
@@ -101,7 +119,35 @@ class Backend(abc.ABC):
                 prev = self.outputs[segment.programs[layer - 1].out_name]
                 g = prog.gemm
                 t["I"] = adapt(prev, g.m, g.k)
+            elif any(op.meta.get("operand") == "I"
+                     and op.meta.get("tensor") == "I"
+                     for tile in prog.tiles for op in tile.loads):
+                # unchained sub-programs (per-array shard chains) still
+                # load the host 'I': feed the previous layer's output
+                t["I"] = self.outputs[segment.programs[layer - 1].out_name]
             self.run_program(prog, t)
+        return self.outputs
+
+    def _run_sharded_segment(self, segment, tensors=None
+                             ) -> dict[str, torch.Tensor]:
+        """Per-array fused execution of an M-sharded chained segment:
+        each array runs its row slice of the WHOLE chain on its own
+        sub-backend (fused on backends that support it), so the segment
+        costs n_arrays launches instead of n_arrays * n_layers."""
+        tensors = tensors or {}
+        out = torch.zeros((segment.m, segment.n_out), dtype=torch.float32,
+                          device=self.device)
+        for a, (fseg, (m0, m1)) in enumerate(
+                zip(segment.array_segments, segment.row_ranges)):
+            sub = self._shard_backend(a)
+            before = sub.n_launches
+            t = {k: v for k, v in tensors.items() if k != "I"}
+            if "I" in tensors:
+                t["I"] = tensors["I"][m0:m1]
+            res = sub.run_segment(fseg, t)
+            out[m0:m1] = res[fseg.out_name][:m1 - m0]
+            self.n_launches += sub.n_launches - before
+        self.outputs[segment.out_name] = out
         return self.outputs
 
     def run_batched_attention(self, programs, q, kT, v,
@@ -151,8 +197,57 @@ class Backend(abc.ABC):
         return torch.stack([adapt(ctx[r], m_out, k_out) @ wo
                             for r in range(ctx.shape[0])])
 
+    # -- multi-array execution ----------------------------------------------
+    def _make_shard_backend(self) -> "Backend":
+        """A fresh executor for one logical array, on this backend's
+        device (subclasses thread their other construction kwargs
+        through)."""
+        return type(self)(self.cfg, device=self.device)
+
+    def _shard_backend(self, array: int) -> "Backend":
+        be = self._shard_subs.get(array)
+        if be is None:
+            be = self._make_shard_backend()
+            self._shard_subs[array] = be
+        return be
+
+    def _shard_tensors(self, sharded, shard, tensors) -> dict:
+        """The operand dict one shard runs on (its slices of 'I' and
+        'W'; the CUDA backend makes them contiguous)."""
+        return shard.slice_tensors(tensors)
+
+    def run_sharded(self, sharded, tensors=None
+                    ) -> dict[str, torch.Tensor]:
+        """Execute every shard on its array's executor and assemble.
+
+        M/N shards write disjoint output slices; K shards produce
+        partial sums added in shard order from zeros -- the functional
+        twin of the mesh all-reduce.  The hoisted epilogue activation
+        (see ``program.shard_program``) runs on the assembled output.
+        Launches stay on the sub-backends' counts, as in the JAX
+        package (``n_launches`` of this backend does not move)."""
+        g = sharded.base.gemm
+        acc = torch.zeros((g.m, g.n), dtype=torch.float32,
+                          device=self.device)
+        for shard in sharded.shards:
+            sub = self._shard_backend(shard.array)
+            out = sub.run_program(shard.program,
+                                  self._shard_tensors(sharded, shard,
+                                                      tensors)
+                                  )[sharded.out_name]
+            if sharded.reduce:
+                acc += out
+            else:
+                acc[shard.m0:shard.m1, shard.n0:shard.n1] = out
+        if sharded.epilogue_act is not None:
+            acc = sharded.epilogue_act(acc)
+        self.outputs[sharded.out_name] = acc
+        return self.outputs
+
     def reset(self) -> None:
         self.outputs = {}
+        for sub in self._shard_subs.values():
+            sub.reset()
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"{type(self).__name__}(ah={self.cfg.ah}, "

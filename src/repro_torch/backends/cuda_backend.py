@@ -15,6 +15,9 @@ the whole tile lattice runs as a single kernel launch per layer --
                                       assembled output, in the
                                       accumulator orientation
   fused segment                   ->  one ``fused_chain`` launch
+  sharded Program (ArrayMesh)     ->  one ``nest_gemm`` launch per shard,
+                                      each on its array's sub-backend
+  M-sharded fused segment         ->  one ``fused_chain`` launch per array
   batched decode attention        ->  one ``flash_decode`` launch
   ... with the Wo projection      ->  one ``flash_decode_proj`` launch
 
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
@@ -224,6 +228,12 @@ class CudaBackend(Backend):
         # counts the real compile_program invocations of this instance.
         self.compile_cache = compile_cache
         self.n_compiles = 0
+        # contiguous copies of the column slices an N split cuts from a
+        # weight: id(source) -> (weak reference, version, mesh,
+        # {bounds: copy})
+        self._slices: dict[int, tuple] = {}
+        #: slice copies made (a resident weight's: once per shard)
+        self.n_slice_copies = 0
 
     def compile(self, program: "Program") -> CompiledProgram:
         key = id(program)
@@ -277,9 +287,11 @@ class CudaBackend(Backend):
     def run_segment(self, segment, tensors=None):
         """ONE ``fused_chain`` launch for the whole chained segment: the
         interior activations stay in the kernel's block; only the segment
-        input, the weights and the final output cross device memory."""
-        if not isinstance(segment, programlib.FusedSegment):
-            raise NotImplementedError("mesh slice not ported")
+        input, the weights and the final output cross device memory.  A
+        :class:`~repro_torch.core.program.ShardedFusedSegment` runs one
+        such launch per array (``Backend._run_sharded_segment``)."""
+        if isinstance(segment, programlib.ShardedFusedSegment):
+            return self._run_sharded_segment(segment, tensors)
         comp = self.compile_fused(segment)
         self.n_launches += 1
         _LAUNCHES.inc(1, kernel="fused_chain")
@@ -356,7 +368,7 @@ class CudaBackend(Backend):
     def run_program(self, program: "Program", tensors=None
                     ) -> dict[str, torch.Tensor]:
         if isinstance(program, programlib.ShardedProgram):
-            raise NotImplementedError("mesh slice not ported")
+            return self.run_sharded(program, tensors)
         comp = self.compile(program)
         self.n_launches += 1
         _LAUNCHES.inc(1, kernel="nest_gemm")
@@ -382,6 +394,56 @@ class CudaBackend(Backend):
         if comp.commit:
             self._committed = out
         return self.outputs
+
+    # -- multi-array execution ----------------------------------------------
+    def _make_shard_backend(self) -> "CudaBackend":
+        return CudaBackend(self.cfg, device=self.device,
+                           max_block=self.max_block,
+                           compile_cache=self.compile_cache)
+
+    def _shard_tensors(self, sharded, shard, tensors) -> dict:
+        """A shard's operands: its 'I' slice as ``Shard.slice_tensors``
+        cuts it (the kernel wrapper copies a K split's column slice per
+        call), its 'W' slice through :meth:`_weight_slice`."""
+        out = shard.slice_tensors(tensors)
+        if "W" in out:
+            out["W"] = self._weight_slice(self.to_device(tensors["W"]),
+                                          sharded.mesh, shard)
+        return out
+
+    def _weight_slice(self, w: torch.Tensor, mesh, shard) -> torch.Tensor:
+        """``w[k0:k1, n0:n1]``, contiguous.  A row slice is a view; the
+        column slice of an N split is copied once per source tensor and
+        mesh, and kept while the source lives unmodified on that mesh:
+        the entry holds the source by a weak reference (a KV operand,
+        made per call, is copied per call, and its entry goes at the
+        next miss), checks its identity and version counter (an
+        in-place update of a weight copies it again), and is made anew
+        when the source is first cut for another mesh (a failover's
+        re-lowering drops the old mesh's copies)."""
+        view = w[shard.k0:shard.k1, shard.n0:shard.n1]
+        if view.is_contiguous():
+            return view
+        key = id(w)
+        entry = self._slices.get(key)
+        if (entry is None or entry[0]() is not w or entry[1] != w._version
+                or entry[2] != mesh):
+            for dead in [k for k, e in self._slices.items() if e[0]() is None]:
+                del self._slices[dead]
+            entry = (weakref.ref(w), w._version, mesh, {})
+            self._slices[key] = entry
+        bounds = (shard.k0, shard.k1, shard.n0, shard.n1)
+        copy = entry[3].get(bounds)
+        if copy is None:
+            copy = entry[3][bounds] = view.contiguous()
+            self.n_slice_copies += 1
+        return copy
+
+    def held_slices(self) -> dict[tuple, torch.Tensor]:
+        """The weight-slice copies held for sources still alive, by
+        ``(id(source), (k0, k1, n0, n1))``."""
+        return {(key, bounds): copy for key, e in self._slices.items()
+                if e[0]() is not None for bounds, copy in e[3].items()}
 
     def reset(self) -> None:
         super().reset()

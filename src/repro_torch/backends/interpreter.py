@@ -47,9 +47,8 @@ class InterpreterBackend(Backend):
                                       max_depth=max_depth)
 
     def _make_shard_backend(self) -> "InterpreterBackend":
-        raise NotImplementedError(
-            "the interpreter's shard backend comes with the sharded path "
-            "(ROADMAP item A.7)")
+        return InterpreterBackend(self.cfg, device=self.device,
+                                  max_depth=self.max_depth)
 
     def run_trace(self, ops: Iterable["TraceOp"], tensors=None
                   ) -> dict[str, torch.Tensor]:
@@ -65,9 +64,7 @@ class InterpreterBackend(Backend):
     def run_program(self, program: "Program", tensors=None
                     ) -> dict[str, torch.Tensor]:
         if isinstance(program, programlib.ShardedProgram):
-            raise NotImplementedError(
-                "sharded Programs run on the sharded path (ROADMAP item "
-                "A.7)")
+            return self.run_sharded(program, tensors)
         return self.run_trace(program.trace_ops(), tensors)
 
     def reset(self) -> None:

@@ -123,8 +123,9 @@ class ArchPlan:
 
 
 def cross_check(arch_plan: ArchPlan,
-                backends: Sequence[str] = ("cuda",),
-                max_macs: float = 2e8, seed: int = 0) -> dict[tuple, dict]:
+                backends: Sequence[str] = ("interpreter", "cuda"),
+                max_macs: float = 2e8, seed: int = 0,
+                **backend_kwargs) -> dict[tuple, dict]:
     """Execute the planned Programs on the selected backends against the
     einsum oracle (the correctness spine behind the analytic numbers).
 
@@ -132,6 +133,8 @@ def cross_check(arch_plan: ArchPlan,
     run; huge layers (decode GEMMs reach billions of MACs) are skipped --
     their *mappings* are identical shape classes to the checked ones.
     Returns {(m, k, n): {backend: max_abs_err}} and raises on divergence.
+    ``backend_kwargs`` reach every backend (``device="cpu"`` for the
+    plain versions).
     """
     import numpy as np
 
@@ -148,7 +151,8 @@ def cross_check(arch_plan: ArchPlan,
             "W": rng.standard_normal((g.k, g.n)).astype(np.float32),
         }
         out[key] = backendlib.cross_check(plan.program, tensors,
-                                          backends=tuple(backends))
+                                          backends=tuple(backends),
+                                          **backend_kwargs)
     return out
 
 

@@ -1411,8 +1411,15 @@ def shard_program(program: Program, mesh, axis: str | None = None,
                          "on-chip; shard the un-chained lowering instead")
     g = program.gemm
     if axis is None:
-        # the axis policy lives in the mesh package, which is not ported
-        raise NotImplementedError("mesh slice not ported")
+        # the dist.sharding policy over host-orientation tile counts
+        # (under IO-S the search m-rank tiles host N and vice versa)
+        from repro_torch.dist import sharding as shardinglib
+        wos = program.choice.df == isa.Dataflow.WOS
+        tiles = {"m": program.n_m if wos else program.n_n,
+                 "n": program.n_n if wos else program.n_m,
+                 "k": program.n_k}
+        axis = shardinglib.gemm_shard_axis(g.m, g.k, g.n, mesh.n_arrays,
+                                           tiles=tiles)
     if axis not in ("m", "n", "k"):
         raise ValueError(f"shard axis must be 'm'|'n'|'k', got {axis!r}")
 

@@ -1,0 +1,13 @@
+"""Multi-array substrate of the serving spine.
+
+  mesh      ArrayMesh: N logical FEATHER+ arrays, one sub-backend each
+  sharding  the GEMM-rank axis policy ``core/program.shard_program``
+            uses (``GEMM_AXIS_RULES``, ``gemm_shard_axis``)
+  elastic   the atomic serving snapshot a killed serve resumes from
+
+It imports only torch, numpy and the standard library.
+"""
+
+from repro_torch.dist.mesh import ArrayMesh
+
+__all__ = ["ArrayMesh"]

@@ -312,6 +312,11 @@ class FaultyBackend:
                            programs, q, kT, v, wo, m_out=m_out,
                            k_out=k_out, lengths=lengths)
 
+    def run_sharded(self, sharded, tensors=None):
+        return self._guard(self._inner.run_sharded,
+                           getattr(sharded, "out_name", None),
+                           sharded, tensors)
+
     # -- passthrough ---------------------------------------------------------
     def __getattr__(self, name):
         return getattr(self._inner, name)

@@ -46,9 +46,13 @@ also breaks the chain there (the oracle mirrors both paths).
 
 Tensors are torch tensors on the backend's device: each run moves
 its tensor dict there once (resident weights pass through), and the
-carriers it returns stay there.  The multi-array path (``mesh=``) keeps
-the JAX package's structure but is not ported: sharding raises
-``NotImplementedError``.
+carriers it returns stay there.
+
+Multi-array serving: with a ``dist.ArrayMesh`` (``mesh=``), every
+step's Program is sharded across the mesh (``ProgramCache.sharded``) and
+executed via the backends' sharded path.  On-chip chaining is per-array
+machine state and does not cross the mesh boundary, so sharded streams
+feed each wired step its producer's output explicitly.
 """
 
 from __future__ import annotations
@@ -603,8 +607,14 @@ class ModelExecutable:
                     t["I"] = env[s.input_name]
                 elif s.input_mode == "adapt":
                     t["I"] = adapt(prev, g.m, g.k)
+                elif s.input_mode == "wired" and s.sharded is not None:
+                    # sharded streams do not chain on-chip: the producer's
+                    # output crosses the array boundary explicitly
+                    t["I"] = prev
                 with trace.span("segment", kind="per_step", step=s.index):
-                    out = be.run_program(s.program, t)[s.program.out_name]
+                    out = be.run_program(
+                        s.sharded if s.sharded is not None else s.program,
+                        t)[s.program.out_name]
                 if s.host_act is not None:
                     out = s.host_act(out)
                 if check:

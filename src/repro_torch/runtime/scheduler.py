@@ -598,6 +598,7 @@ class Scheduler:
                  *, backend: str = "cuda", device="cuda",
                  max_concurrent: int = 4,
                  weight_seed: int = 0, seed: int = 0,
+                 weights: tuple[dict, dict] | None = None,
                  use_fused: bool | None = None,
                  batch_decode: bool | None = None,
                  token_budget: int | None = None,
@@ -671,12 +672,22 @@ class Scheduler:
                 f"({per_req} pages of {kv_page_size} slots needed)")
         self.kv_pool = KVPool(specs, kv_page_size, kv_pages)
         # weight residency: one static weight set serves every request,
-        # moved to the backend's device once
+        # moved to the backend's device once -- or the (prefill, decode)
+        # sets of another Scheduler of the same model (``weights``), so
+        # a flat and a mesh server on one device share them
         dev = self.backend.device
-        self.prefill_weights = tensors_from_numpy(
-            prefill.make_tensors(weight_seed, kinds=("weight",)), dev)
-        self.decode_weights = tensors_from_numpy(
-            decode.make_tensors(weight_seed, kinds=("weight",)), dev)
+        if weights is None:
+            weights = tuple(
+                tensors_from_numpy(ex.make_tensors(weight_seed,
+                                                   kinds=("weight",)), dev)
+                for ex in (prefill, decode))
+        for ex, w in zip((prefill, decode), weights):
+            names = {n for n, (_, kind) in ex.tensor_specs().items()
+                     if kind == "weight"}
+            if set(w) != names:
+                raise ValueError(f"weights of {ex.name} must be exactly "
+                                 f"its weight tensors {sorted(names)}")
+        self.prefill_weights, self.decode_weights = weights
         self._pending: collections.deque[Request] = collections.deque()
         self._next_rid = 0
         # serving state shared between the loop, snapshot() and resumed

@@ -440,3 +440,118 @@ def test_interpreter_on_the_card_matches_the_cpu(cuda, mkn, ah, aw):
                                atol=2e-4 * k)
     torch.testing.assert_close(cpu, _t(t["I"]) @ _t(t["W"]), rtol=2e-4,
                                atol=2e-4 + 2e-4 * k)
+
+
+# ---------------------------------------------------------------------------
+# The multi-array path on the card: every shard a nest_gemm launch on its
+# array's sub-backend, N-split weight slices made contiguous once
+# ---------------------------------------------------------------------------
+
+def _mesh_program(df, mkn):
+    from repro_torch.configs.feather import feather_config
+    from repro_torch.core import isa, mapper, program
+    m, k, n = mkn
+    choice = mapper.MappingChoice(df=getattr(isa.Dataflow, df), vn=4, m_t=8,
+                                  k_t=8, n_t=8, n_kg=1, n_nb=1, dup=4)
+    return program.lower(mapper.Gemm(m=m, k=k, n=n), choice,
+                         feather_config(4, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("df", ["WOS", "IOS"])
+def test_run_sharded_on_the_card_every_axis(cuda, df):
+    """A 4-array ShardedProgram on the card, for every axis, against the
+    same shards through the plain versions on the CPU: one nest_gemm
+    launch a shard, and the N split's W slices (views that are not
+    contiguous) reach the kernel."""
+    from repro_torch.backends import CudaBackend
+    from repro_torch.core import program
+    from repro_torch.dist import ArrayMesh
+    m, k, n = 24, 40, 72
+    prog = _mesh_program(df, (m, k, n))
+    x, w = _np((m, k)), _np((k, n))
+    for axis in ("m", "n", "k"):
+        sh = program.shard_program(prog, ArrayMesh(4), axis=axis)
+        s1 = sh.shards[1]
+        view = _t(w, cuda)[s1.k0:s1.k1, s1.n0:s1.n1]
+        assert view.is_contiguous() == (axis != "n")
+        be = CudaBackend(prog.cfg)
+        before = ng.launches
+        got = be.run_sharded(sh, {"I": _t(x, cuda),
+                                  "W": _t(w, cuda)})[prog.out_name]
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.shape == (m, n)
+        assert ng.launches == before + sh.n_shards
+        assert be.n_slice_copies == (sh.n_shards if axis == "n" else 0)
+        want = CudaBackend(prog.cfg, device="cpu").run_sharded(
+            sh, {"I": _t(x), "W": _t(w)})[prog.out_name]
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4,
+                                   atol=2e-4 * k)
+        torch.testing.assert_close(got.cpu(), _t(x) @ _t(w), rtol=2e-4,
+                                   atol=2e-4 + 2e-4 * k)
+
+
+@pytest.mark.cuda
+def test_weight_slices_copied_once_on_the_card(cuda):
+    """A resident weight's N-split slices are copied on the first call
+    only; a fresh source (a per-call KV operand) is copied again, and its
+    entry goes once it has died."""
+    from repro_torch.backends import CudaBackend
+    from repro_torch.core import program
+    from repro_torch.dist import ArrayMesh
+    prog = _mesh_program("WOS", (1, 64, 96))
+    sh = program.shard_program(prog, ArrayMesh(4), axis="n")
+    be = CudaBackend(prog.cfg)
+    t = {"I": _t(_np((1, 64)), cuda), "W": _t(_np((64, 96)), cuda)}
+    outs = [be.run_sharded(sh, t)[prog.out_name].clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert be.n_slice_copies == 4 and len(be.held_slices()) == 4
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    kv = {"I": t["I"], "W": t["W"].clone()}
+    be.run_sharded(sh, kv)
+    assert be.n_slice_copies == 8 and len(be._slices) == 2
+    del kv
+    be.run_sharded(sh, {"I": t["I"], "W": t["W"].clone()})
+    assert be.n_slice_copies == 12 and len(be._slices) == 2
+    be.run_sharded(sh, t)
+    assert be.n_slice_copies == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_arrays", [1, 2])
+def test_chaos_serve_on_the_card(cuda, n_arrays, tmp_path):
+    """The standard fault plan on the cuda backend, flat (with a disk
+    cache to corrupt) and on 2 arrays (one array_down, served on 1):
+    every fault recovered, checksums equal to the fault-free serve's."""
+    from repro_torch.configs.feather import feather_config
+    from repro_torch.dist import ArrayMesh
+    from repro_torch.faults import FaultInjector, FaultPlan
+    from repro_torch.runtime import ModelExecutable, ProgramCache, Scheduler
+    cfg = feather_config(4, 16)
+    mesh = ArrayMesh(n_arrays) if n_arrays > 1 else None
+    cache = ProgramCache(path=tmp_path / "cache.bin")
+
+    def serve(faults=None):
+        pre, dec = (ModelExecutable.for_cell("gemma-7b", shape, cfg,
+                                             cache=cache, mesh=mesh)
+                    for shape in ("prefill_tiny", "decode_tiny"))
+        sched = Scheduler(pre, dec, max_concurrent=2, seed=7, faults=faults)
+        for _ in range(3):
+            sched.submit(decode_steps=4)
+        rep = sched.run()
+        return [r.state_checksum for r in rep.requests], rep
+
+    base, base_rep = serve()
+    injector = FaultInjector(FaultPlan.standard(0, n_arrays=n_arrays))
+    sums, rep = serve(injector)
+    assert sums == base and all(sums)
+    assert injector.unrecovered() == 0
+    assert all(r.status == "ok" for r in rep.requests)
+    assert any(r.retries > 0 for r in rep.requests)
+    if n_arrays == 1:
+        assert set(injector.injected) == {"launch_transient", "launch_nan",
+                                          "kv_exhaust", "cache_corrupt"}
+    else:
+        assert injector.injected.get("array_down") == 1
+        assert (base_rep.n_arrays, rep.n_arrays) == (2, 1)
+        assert rep.summary()["resilience"]["mesh_degraded"] == 1

@@ -287,6 +287,33 @@ def test_interpreter_backend_registered_and_cross_checked():
 
 
 def test_sharded_path_waits_for_a7():
-    be = InterpreterBackend(t_feather(4, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        be._make_shard_backend()
+    """The sharded path ROADMAP item A.7 ported: the interpreter runs a
+    ShardedProgram on one machine per array (shard backends on its
+    device, with its ``max_depth``), equal to the JAX interpreter's
+    sharded run and the oracle for every axis and both dataflows."""
+    from repro.backends import InterpreterBackend as JInterp
+    from repro.dist import ArrayMesh as JMesh
+    from repro_torch.dist import ArrayMesh
+    be = InterpreterBackend(t_feather(4, 16), device="cpu", max_depth=64)
+    sub = be._make_shard_backend()
+    assert isinstance(sub, InterpreterBackend)
+    assert (sub.device, sub.max_depth) == (be.device, 64)
+    mkn = (14, 12, 18)
+    i, w = _inputs(mkn, 4)
+    for df in ("WOS", "IOS"):
+        jprog, tprog = _programs(mkn, 4, 16, dict(
+            df=df, vn=4, m_t=8, k_t=8, n_t=8, n_kg=1, n_nb=1, dup=4))
+        for axis in ("m", "n", "k"):
+            jsh = j_program.shard_program(jprog, JMesh(3), axis=axis)
+            tsh = t_program.shard_program(tprog, ArrayMesh(3), axis=axis)
+            want = np.asarray(JInterp(jprog.cfg).run_program(
+                jsh, {"I": i, "W": w})["O"])
+            be.reset()
+            got = be.run_program(tsh, {"I": i, "W": w})["O"]
+            assert got.device.type == "cpu" and be.n_launches == 0
+            atol = RTOL + RTOL * mkn[1]
+            np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
+                                       atol=atol)
+            np.testing.assert_allclose(got.numpy(), i @ w, rtol=RTOL,
+                                       atol=atol)
+    assert sorted(be._shard_subs) == [0, 1, 2]
