@@ -16,10 +16,15 @@ Phases (any failure exits non-zero; no phase catches its own):
      held bit-equal to the same rows at M = 1; each fused_chain case
      prints its plan (clusters x ranks, placement, shared memory);
      flash_decode runs its case and the serves' shapes beside an empty
-     kernel's time (``csrc/empty.cu``, the launch floor);
+     kernel's time (``csrc/empty.cu``, the launch floor), its bf16 route
+     at the model zoo's decode shape beside SDPA in bf16, and its fp32
+     route bit-equal to the kernel before the bf16 route (recorded output
+     digests on exact inputs);
      flash_attention holds fp32 to 1e-4 of its plain version (three TF32
-     products on the tensor cores, bound at 495/3 TFLOP/s) and logs a
-     bf16 run beside SDPA in bf16.  The attention kernels' library call is
+     products on the tensor cores, bound at 495/3 TFLOP/s), logs a bf16
+     run at the same shape and times its bf16 route at the model zoo's
+     prefill shape, each beside SDPA in bf16.  The attention kernels'
+     library call is
      SDPA on 4-D inputs, every route that takes them timed, the fastest
      kept;
   3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
@@ -57,14 +62,34 @@ Phases (any failure exits non-zero; no phase catches its own):
      fused_chain launch an array for each sharded fused segment); chaos on
      the card, flat and with an array going down; a serve resumed from a
      snapshot file.
+ 10. the model zoo: gemma-7b (28 layers) and falcon-mamba-7b (64 layers)
+     at full width and depth in bf16, built and served as
+     ``python -m repro_torch.launch.serve --arch ARCH`` does (batch 4,
+     prompt 32, 16 greedy steps, weights drawn on the card from a seeded
+     generator): exact launches (flash_attention once a layer at prefill,
+     flash_decode once a layer a decode step, mamba_scan once a layer a
+     step, no other kernel), tokens identical over two serves, the first
+     and the last layer's kernel calls held against their plain versions,
+     the logits of a prefill and a decode step held against the same
+     model on the plain versions (and shown to move past the tolerance
+     when the last layer's kernel results are dropped: seeded weights make
+     greedy tokens repeat, so tokens alone see no kernel fault), the
+     decode step beside the bound of reading every weight once; then both
+     models at depth 2 in fp32: decode after a prefill equal to the longer
+     prefill (rtol and atol 2e-3).
 
-Ends with the ``kernels`` JSON line, the card's name and power limit, and
-the result line ``{"ok": true, "device": {...}}``.
+Phase 10 runs last, after phase 9's weights are freed, and frees what it
+makes.  Ends with the ``kernels`` JSON line (a row per route, each with
+its own path's launches and what its times were taken at), the card's
+name and power limit, and the result line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -83,6 +108,7 @@ from repro_torch import backends  # noqa: E402
 from repro_torch.backends import (Backend, CudaBackend,  # noqa: E402
                                   compile_program, compile_segment)
 from repro_torch.configs.feather import feather_config  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import isa, mapper, workloads  # noqa: E402
 from repro_torch.core import program as programlib  # noqa: E402
 from repro_torch.dist import ArrayMesh  # noqa: E402
@@ -94,6 +120,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_chain as fc  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nest_gemm as ng  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import expand_cache  # noqa: E402
 from repro_torch.runtime import (ModelExecutable, ProgramCache,  # noqa: E402
                                  Scheduler, autotune_segment, segment_key)
 from repro_torch.runtime.autotune import _segment_tensors  # noqa: E402
@@ -429,6 +458,106 @@ def check_flash_decode(timer, gen) -> dict:
     return row
 
 
+#: flash_decode's bf16 route at the model zoo's decode shape: gemma-7b's
+#: [B * KVH, g, D] = [4 * 16, 1, 256] against a cache of 49 positions, the
+#: last decode step's length (32 prompt + 15 steps), scale 256**-0.5
+DECODE_BF16_CASE = (64, 1, 49, 256, 47)
+
+
+def check_flash_decode_bf16(timer, gen) -> dict:
+    """The bf16 route against its plain version (p rounded to bf16 before
+    P V, output in bf16) at ``DECODE_BF16_CASE``, timed beside SDPA on the
+    same bf16 inputs (every route, the fastest kept) and its bound: the
+    kernels JSON row of the route."""
+    b, sq, skv, d, length = DECODE_BF16_CASE
+    scale = d ** -0.5
+    # q at 1/scale: scores of std ~8, a peaked softmax whose output RMS
+    # is far above check()'s atol, as at the fp32 cases
+    q = (torch.randn(b, sq, d, device="cuda", generator=gen) / scale
+         ).to(torch.bfloat16)
+    k = (torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
+         ).to(torch.bfloat16)
+    v = torch.randn(b, skv, d, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    got = fa.flash_decode(q, k, v, lens, scale=scale)
+    want = ref.flash_decode_ref(q, k, v, lens, scale=scale)
+    assert got.dtype == want.dtype == torch.bfloat16
+    name = f"flash_decode bf16 {(b, sq, skv, d)}"
+    err = check(name, got.float(), want.float(), d)
+    mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])
+    ms_ = timer(lambda: fa.flash_decode(q, k, v, lens, scale=scale))
+    plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens, scale=scale))
+    lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
+                       k[:, None], v[:, None],
+                       attn_mask=mask[:, None, None, :], scale=scale)
+    used = b * length                # the KV rows these lengths need
+    nbytes = 2.0 * (2 * b * sq * d + 2 * used * d) + 4 * b
+    flops = 4.0 * sq * used * d
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+    log(f"K3 {name}: lengths {length} | max_err {err:.3g} | ms "
+        f"{spread(ms_)} plain {plain['ms']:.4f} sdpa {lib['ms']:.4f} "
+        f"({lib['route']}) bound {b_ms:.6f} ({b_by})")
+    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
+
+
+#: (B, sq, skv, d, dv, lengths) of the fp32 route's bit-equality gate:
+#: the full-width serve's shape with ragged lengths, two row groups and a
+#: part strip, d and dv off the float4 grid (element copies), and the
+#: model zoo's decode shape
+DIGEST_CASES = [(4, 1, 16, 256, 256, (16, 1, 9, 5)),
+                (3, 20, 37, 64, 96, (0, 37, 16)),
+                (2, 3, 19, 20, 28, (19, 4)),
+                (64, 1, 49, 256, 256, tuple(33 + i % 15 for i in range(64)))]
+#: sha256 (first 16 hex digits) of the fp32 route's output bytes at each
+#: DIGEST_CASES case, as the kernel gave them before its bf16 route was
+#: added, on an H100 with nvcc 12.8 (compare_kernels.py prints both
+#: kernels' digests)
+DECODE_F32_DIGESTS = {(4, 1, 16, 256, 256): "c52e55c1bfd33aaf",
+                      (3, 20, 37, 64, 96): "8d469ce2f2b520d6",
+                      (2, 3, 19, 20, 28): "f0dffe674325e183",
+                      (64, 1, 49, 256, 256): "57cd3b9f346f3d56"}
+
+
+def exact_inputs(shape, salt: int, scale: float) -> torch.Tensor:
+    """fp32 values on the card from integer arithmetic alone (every value
+    exact), the same on every run and every torch: a multiple of 1/1024
+    in [-2, 2) times ``scale`` (a power of two)."""
+    n = 1
+    for x in shape:
+        n *= x
+    i = torch.arange(n, dtype=torch.int64, device="cuda")
+    vals = ((i * 2654435761 + salt * 40503) % 4099).float() - 2049.0
+    return (vals / 1024.0 * scale).reshape(shape)
+
+
+def decode_digests(flash_decode) -> list[str]:
+    """``flash_decode(q, k, v, lengths)``'s fp32 output at each
+    DIGEST_CASES case, as sha256 digests of its bytes."""
+    import hashlib
+    out = []
+    for b, sq, skv, d, dv, lengths in DIGEST_CASES:
+        q = exact_inputs((b, sq, d), 1, 1.0)
+        k = exact_inputs((b, skv, d), 2, 0.5)
+        v = exact_inputs((b, skv, dv), 3, 1.0)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        o = flash_decode(q, k, v, lens)
+        torch.cuda.synchronize()
+        out.append(hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest()[:16])
+    return out
+
+
+def check_decode_f32_digests() -> None:
+    """The fp32 route is bit-equal to the kernel before the bf16 route:
+    its output's digest at each DIGEST_CASES case is the recorded one."""
+    got = decode_digests(fa.flash_decode)
+    for case, digest in zip(DIGEST_CASES, got):
+        want = DECODE_F32_DIGESTS.get(case[:5])
+        log(f"K3 flash_decode fp32 digest {case[:5]}: {digest} "
+            f"(recorded {want})")
+        assert digest == want, (case, digest, want)
+
+
 def fused_cases(decode, prefill, bucket: int) -> list[tuple]:
     """(label, dims, bm, bks, acts, adapts): the reduced cell's fused
     segments, synthetic ones with an adapt and the row-wise acts and with
@@ -637,6 +766,39 @@ def check_flash_attention(timer, gen) -> tuple[dict, tuple]:
             kept = (q, k, v, got)
         del qt, kt, vt
     return row, kept
+
+
+#: flash_attention's bf16 route at the model zoo's prefill: gemma-7b's
+#: [B * H, S, D] = [4 * 16, 32, 256], causal
+ZOO_ATTN_CASE = (64, 32, 256)
+
+
+def check_flash_attention_bf16(timer, gen) -> dict:
+    """The bf16 route at ``ZOO_ATTN_CASE`` against its plain version,
+    timed beside SDPA in bf16 (every route, the fastest kept) and its
+    bound: the kernels JSON row of the route."""
+    bh, s, d = ZOO_ATTN_CASE
+    # q at 8x scale: a peaked softmax, as at ATTN_SHAPE
+    q = (torch.randn(bh, s, d, device="cuda", generator=gen) * 8.0
+         ).to(torch.bfloat16)
+    k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
+                        ).to(torch.bfloat16) for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert got.dtype == want.dtype == torch.bfloat16
+    name = f"flash_attention bf16 {ZOO_ATTN_CASE}"
+    err = check(name, got.float(), want.float(), d)
+    ms_ = timer(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain = timer(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lib = sdpa_library(timer, name, want, lambda o: o[0], q[None],
+                       k[None], v[None], is_causal=True)
+    nbytes = 4.0 * bh * s * d * q.element_size()
+    flops = 4.0 * bh * d * s * (s + 1) / 2         # causal pairs only
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+    log(f"K5 {name}: causal | max_err {err:.3g} | ms {spread(ms_)} plain "
+        f"{plain['ms']:.4f} sdpa {lib['ms']:.4f} ({lib['route']}) bound "
+        f"{b_ms:.6f} ({b_by})")
+    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
 
 
 def check_mamba_scan(timer, gen) -> tuple[dict, tuple]:
@@ -1337,6 +1499,287 @@ def mesh_phase(gen, flat_sums: dict, flat_tick_ms: float, weights: tuple,
     chaos_and_resume()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model zoo on the card
+# ---------------------------------------------------------------------------
+
+#: the serving CLI's defaults: batch 4, prompt 32, 16 greedy steps
+ZOO_ARGV = ["--batch", "4", "--prompt-len", "32", "--steps", "16"]
+#: the largest |kernel - plain| of a captured bf16 attention call (outputs
+#: of about unit RMS; the bf16 flash_attention row reads ~1.6e-2), and of
+#: a captured scan (fp32)
+ZOO_ATTN_TOL = 3e-2
+ZOO_SCAN_TOL = 2e-4
+
+
+class Swap:
+    """While installed, replaces the kernel wrapper ``module.name`` by
+    ``fn`` (its plain version) and, at the calls numbered in ``zero``,
+    zeroes the first output: a layer's kernel result dropped."""
+
+    def __init__(self, module, name: str, fn, zero=()):
+        self.module, self.name, self.fn = module, name, fn
+        self.zero, self.calls = set(zero), 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        if self.calls in self.zero:
+            out = ((torch.zeros_like(out[0]), *out[1:])
+                   if isinstance(out, tuple) else torch.zeros_like(out))
+        self.calls += 1
+        return out
+
+
+class Capture(Swap):
+    """While installed, replaces the kernel wrapper ``module.name`` by one
+    that calls it and keeps the inputs and output of its calls numbered
+    in ``keep`` (cloned), so they can be held against the plain version.
+    The wrapper's own launch count is untouched."""
+
+    def __init__(self, module, name: str, keep):
+        super().__init__(module, name, None)
+        self.keep, self.kept = set(keep), {}
+
+    def __call__(self, *args, **kw):
+        i = self.calls
+        self.calls += 1
+        out = self.orig(*args, **kw)
+        if i in self.keep:
+            def clone(x):
+                return x.clone() if isinstance(x, torch.Tensor) else x
+            self.kept[i] = ([clone(a) for a in args],
+                            {k: clone(v) for k, v in kw.items()},
+                            [clone(o) for o in (out if isinstance(out, tuple)
+                                                else (out,))])
+        return out
+
+
+def zoo_kernel_checks(arch: str, caps: list) -> None:
+    """Each captured call (of the first and the last layer) against its
+    plain version on the same card tensors."""
+    for cap in caps:
+        for i, (args, kw, outs) in sorted(cap.kept.items()):
+            if cap.name == "flash_attention":
+                want = [ref.flash_attention_ref(*args, **kw)]
+                tol = ZOO_ATTN_TOL
+            elif cap.name == "flash_decode":
+                q, k, v, lens = args
+                want = [ref.flash_decode_ref(q, k, v, lens, **kw)]
+                tol = ZOO_ATTN_TOL
+            else:
+                want = list(ref.mamba_scan_ref(*args))
+                tol = ZOO_SCAN_TOL
+            errs = [float((o.float() - w.float()).abs().max())
+                    for o, w in zip(outs, want)]
+            rms = float(want[0].float().pow(2).mean().sqrt())
+            shapes = [tuple(a.shape) for a in args[:2]]
+            log(f"zoo {arch}: {cap.name} call {i} {shapes} "
+                f"{str(args[0].dtype).split('.')[1]} | max_err "
+                f"{', '.join(f'{e:.3g}' for e in errs)} (tolerance {tol}), "
+                f"output RMS {rms:.3f}"
+                + ("" if cap.name != "mamba_scan" else
+                   f", h_last bit-equal {torch.equal(outs[1], want[1])}"))
+            assert all(e <= tol for e in errs) and all(
+                bool(torch.isfinite(o).all()) for o in outs), (arch, i, errs)
+
+
+def zoo_serve(arch: str, name_limit: str, device="cuda") -> dict:
+    """``arch`` at full width and depth in its published dtype, built and
+    served as ``python -m repro_torch.launch.serve --arch ARCH`` builds
+    and serves it (the CLI's defaults): launches exact, two serves'
+    tokens identical, the first and the last layer's kernel calls held
+    against their plain versions (in the second serve), the logits held
+    against the plain versions' (``zoo_logits_gate``), the decode step
+    beside the bound of reading every weight once.  Returns the first
+    serve's launches."""
+    args = launch_serve.parse(["--arch", arch, *ZOO_ARGV, "--device",
+                               str(device)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, prompts, kw = launch_serve.setup(args)
+    torch.cuda.synchronize()
+    model, cfg = engine.model, engine.model.cfg
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"zoo {arch}: {cfg.num_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters, {wbytes / 1e9:.2f} GB {cfg.dtype}, drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    layers, steps = cfg.num_layers, args.steps
+    # the calls captured: the first and the last layer's, at prefill and
+    # at the last decode step
+    if cfg.family == "ssm":
+        expect = {"mamba_scan": layers * steps}
+        keep = {"mamba_scan": (0, layers - 1, layers * (steps - 1),
+                               layers * steps - 1)}
+        mods = {"mamba_scan": ms}
+    else:
+        expect = {"flash_attention": layers,
+                  "flash_decode": layers * (steps - 1)}
+        keep = {"flash_attention": (0, layers - 1),
+                "flash_decode": (layers * (steps - 2),
+                                 layers * (steps - 1) - 1)}
+        mods = {"flash_attention": fa, "flash_decode": fa}
+    expect = {k: expect.get(k, 0) for k in counts()}
+
+    reset_counts()
+    tokens = engine.generate(prompts, steps, **kw)
+    launched = counts()
+    st = engine.stats
+    log(f"zoo {arch}: launches {launched}")
+    assert launched == expect, (launched, expect)
+    assert tokens.shape == (args.batch, steps)
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+
+    caps = [Capture(mods[n], n, idx) for n, idx in keep.items()]
+    with contextlib.ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        reset_counts()
+        tokens2 = engine.generate(prompts, steps, **kw)
+        again = counts()
+    assert again == expect, (again, expect)
+    assert (tokens == tokens2).all(), (tokens, tokens2)
+    zoo_kernel_checks(arch, caps)
+    zoo_logits_gate(arch, model, prompts, kw, mods)
+
+    step_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    bound_ms = wbytes / PEAK_BYTES * 1e3
+    cli_tok_s = args.batch * steps / (st["prefill_s"] + st["decode_s"])
+    rep_ms = engine.stats["decode_s"] / engine.stats["decode_steps"] * 1e3
+    log(f"zoo {arch}: decode {step_ms:.3f} ms a step over "
+        f"{st['decode_steps']} steps ({args.batch / step_ms * 1e3:.1f} "
+        f"tok/s decoding, {cli_tok_s:.1f} tok/s with prefill, the CLI's "
+        f"measure) against the bound {bound_ms:.3f} ms ({wbytes / 1e9:.2f} "
+        f"GB of weights read once a step at {PEAK_BYTES / 1e12:.2f} TB/s); "
+        f"prefill of {args.batch} x {args.prompt_len} tokens "
+        f"{st['prefill_s'] * 1e3:.1f} ms; the repeat serve (capturing "
+        f"calls) {rep_ms:.3f} ms a step "
+        f"({args.batch / rep_ms * 1e3:.1f} tok/s decoding), prefill "
+        f"{engine.stats['prefill_s'] * 1e3:.1f} ms; tokens identical across "
+        f"the two serves")
+    gib = 2 ** 30
+    log(f"zoo {arch}: device memory {torch.cuda.memory_allocated() / gib:.2f}"
+        f" GiB allocated, {torch.cuda.max_memory_allocated() / gib:.2f} GiB "
+        f"peak; card {name_limit}")
+    log(f"zoo {arch}: tokens[:, :12] {tokens[:, :12].tolist()}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launched
+
+
+#: the largest relative L2 distance (a row's) between the zoo's logits on
+#: the kernels and on their plain versions, bf16 at full depth
+ZOO_LOGITS_TOL = 2e-2
+
+#: each kernel wrapper's plain version
+PLAIN = {"flash_attention": ref.flash_attention_ref,
+         "flash_decode": ref.flash_decode_ref,
+         "mamba_scan": ref.mamba_scan_ref}
+
+
+def zoo_logits(model, prompts, kw) -> torch.Tensor:
+    """[2, B, V] fp32: the prefill's logits (last position) and those of
+    one decode step after it, fed each prompt's last token."""
+    b, p = prompts.shape
+    pre, cache = model.prefill(prompts, **kw)
+    cache = expand_cache(model, cache, b, p + 1)
+    step, _ = model.decode_step(prompts[:, -1:], cache,
+                                torch.full((b,), p, dtype=torch.int32,
+                                           device=prompts.device))
+    return torch.stack([pre.float(), step.float()])
+
+
+def zoo_logits_gate(arch: str, model, prompts, kw, mods) -> None:
+    """The served model's logits on the kernels against the same model
+    with every kernel wrapper swapped for its plain version, within
+    ZOO_LOGITS_TOL (a row's relative L2 distance).  Seeded weights make
+    greedy tokens repeat the prompt's last token (the tied table is drawn
+    at scale 1.0), so tokens alone could not see a wrong kernel; the gate
+    is shown to see one: dropping the last layer's kernel results (the
+    plain versions, the last layer's outputs zeroed) must move the logits
+    by more than the tolerance."""
+    layers = model.cfg.num_layers
+    prompts = torch.as_tensor(prompts, device=model.device)
+
+    def rel(a, b):
+        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+    def swapped(zero):
+        with contextlib.ExitStack() as stack:
+            for n, mod in mods.items():
+                stack.enter_context(Swap(mod, n, PLAIN[n], zero(n)))
+            return zoo_logits(model, prompts, kw)
+
+    got = zoo_logits(model, prompts, kw)
+    plain = swapped(lambda n: ())
+    # the last layer's call at prefill and at the decode step: the scan
+    # runs once a layer in both; attention once a layer in each kernel
+    fault = swapped(lambda n: (layers - 1, 2 * layers - 1)
+                    if n == "mamba_scan" else (layers - 1,))
+    err, moved = rel(got, plain), rel(fault, plain)
+    log(f"zoo {arch}: logits on the kernels against the plain versions: "
+        f"relative L2 {err:.3g} (tolerance {ZOO_LOGITS_TOL}; prefill "
+        f"{rel(got[0], plain[0]):.3g}, decode {rel(got[1], plain[1]):.3g}), "
+        f"max |diff| {float((got - plain).abs().max()):.3g} on logits of "
+        f"max {float(plain.abs().max()):.1f}; the last layer's kernel "
+        f"results dropped move them {moved:.3g}")
+    assert bool(torch.isfinite(got).all()), arch
+    assert err <= ZOO_LOGITS_TOL < moved, (arch, err, moved)
+
+
+def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
+    """``tests/test_arch_smoke.py``'s decode-vs-prefill check at full width,
+    depth 2, fp32: prefill(t[:n]) then decode(t[n]) against
+    prefill(t[:n+1]), rtol and atol 2e-3: the kernels' prefill path
+    against their decode path through whole models."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32")
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device).manual_seed(1))
+    b, n = 4, 32
+    gen = torch.Generator(device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (b, n + 1), device=device,
+                         generator=gen)
+    reset_counts()
+    full, _ = model.prefill(toks)
+    _, cache = model.prefill(toks[:, :n])
+    cache = expand_cache(model, cache, b, n + 1)
+    step, _ = model.decode_step(toks[:, n:], cache,
+                                torch.full((b,), n, dtype=torch.int32,
+                                           device=device))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    err = float((step - full).abs().max())
+    log(f"zoo {arch} fp32 depth 2: decode after prefill of {n} against "
+        f"prefill of {n + 1}: max |diff| {err:.3g} on logits of max "
+        f"{float(full.abs().max()):.1f}; launches {launched}")
+    torch.testing.assert_close(step, full, rtol=2e-3, atol=2e-3)
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(name_limit: str, device="cuda") -> dict:
+    """Phase 10; returns the kernels' launches in the two models' first
+    serves."""
+    zoo = {}
+    for arch in ("gemma-7b", "falcon-mamba-7b"):
+        stage(f"phase 10: {arch} served at full width")
+        for k, v in zoo_serve(arch, name_limit, device).items():
+            zoo[k] = zoo.get(k, 0) + v
+    stage("phase 10: decode against prefill, fp32, depth 2")
+    for arch in ("gemma-7b", "falcon-mamba-7b"):
+        zoo_decode_matches_prefill(arch, device)
+    return zoo
+
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py", file=sys.stderr)
@@ -1382,6 +1825,8 @@ def main(argv) -> int:
     check_rows_alone(shapes, gen)
     clocks("after nest_gemm")
     k3 = check_flash_decode(timer, gen)
+    k3b = check_flash_decode_bf16(timer, gen)
+    check_decode_f32_digests()
     rcache = ProgramCache()
     r_pre = ModelExecutable.for_cell("gemma-7b", "prefill_tiny",
                                      feather_config(4, 16), cache=rcache)
@@ -1391,6 +1836,7 @@ def main(argv) -> int:
                            k3["floor_ms"])
     k4 = check_flash_decode_proj(fw_dec, timer, gen)
     k5, attn = check_flash_attention(timer, gen)
+    k5b = check_flash_attention_bf16(timer, gen)
     k6, scan = check_mamba_scan(timer, gen)
     clocks("after phase 2")
     del timer
@@ -1415,25 +1861,40 @@ def main(argv) -> int:
                k3["floor_ms"])
     del fw_weights
     torch.cuda.empty_cache()
+    zoo = zoo_phase(name_limit)
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
-    for name, replaces, stats, launches in (
-            ("nest_gemm", "src/repro/kernels/nest_gemm.py:97", k1,
+    # (name, source file, the TPU kernel, phase 2's stats, what they time,
+    # launches): one row per route, each with its own path's launches
+    for name, file, replaces, stats, timed, launches in (
+            ("nest_gemm", "nest_gemm", "src/repro/kernels/nest_gemm.py:97",
+             k1, "fp32, a full-width decode tick's 8 calls",
              fw["nest_gemm"]),
-            ("flash_decode", "src/repro/kernels/flash_attention.py:256", k3,
-             fw["flash_decode"]),
-            ("fused_chain", "src/repro/kernels/fused_chain.py:240", k2,
-             rw["fused_chain"]),
-            ("flash_decode_proj", "src/repro/kernels/flash_attention.py:218",
-             k4, fp["flash_decode_proj"]),
-            ("flash_attention", "src/repro/kernels/flash_attention.py:99",
-             k5, op["flash_attention"]),
-            ("mamba_scan", "src/repro/kernels/mamba_scan.py:61", k6,
-             op["mamba_scan"])):
+            ("flash_decode", "flash_decode",
+             "src/repro/kernels/flash_attention.py:256", k3,
+             f"fp32 {DECODE_CASES[0][:4]}", fw["flash_decode"]),
+            ("flash_decode_bf16", "flash_decode",
+             "src/repro/kernels/flash_attention.py:256", k3b,
+             f"bf16 {DECODE_BF16_CASE[:4]}", zoo["flash_decode"]),
+            ("fused_chain", "fused_chain",
+             "src/repro/kernels/fused_chain.py:240", k2,
+             "fp32, the reduced decode tick's fused segment", rw["fused_chain"]),
+            ("flash_decode_proj", "flash_decode_proj",
+             "src/repro/kernels/flash_attention.py:218", k4,
+             "fp32, 4 full-width requests with wo", fp["flash_decode_proj"]),
+            ("flash_attention", "flash_attention",
+             "src/repro/kernels/flash_attention.py:99", k5,
+             f"fp32 {ATTN_SHAPE}", op["flash_attention"]),
+            ("flash_attention_bf16", "flash_attention",
+             "src/repro/kernels/flash_attention.py:99", k5b,
+             f"bf16 {ZOO_ATTN_CASE}", zoo["flash_attention"]),
+            ("mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:61",
+             k6, f"fp32 {SCAN_SHAPE}", op["mamba_scan"] + zoo["mamba_scan"])):
         b_ms, b_by = bound(stats["bytes"], stats["flops"], stats["rate"])
         rows.append({"name": name, "route": "cuda",
-                     "source": f"{src}{name}.cu", "replaces": replaces,
+                     "source": f"{src}{file}.cu", "replaces": replaces,
+                     "timed": timed,
                      "launches": launches, "max_abs_err": stats["err"],
                      "ms": stats["ms"], "ms_min": stats["ms_min"],
                      "ms_max": stats["ms_max"],

@@ -6,7 +6,7 @@ NVIDIA GPU.
     git show 69a36e5:src/repro_torch/kernels/csrc/nest_gemm.cu > build/old/nest_gemm.cu
     git show 69a36e5:src/repro_torch/kernels/csrc/fused_chain.cu > build/old/fused_chain.cu
     git show 273c856:src/repro_torch/kernels/csrc/flash_attention.cu > build/old/flash_attention.cu
-    git show 273c856:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
+    git show bac22f7:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
     git show bac22f7:src/repro_torch/kernels/csrc/flash_decode_proj.cu > build/old/flash_decode_proj.cu
     python3 compare_kernels.py build/old
 
@@ -14,8 +14,9 @@ Each kernel whose source the directory holds is compared; an earlier
 source must have the C interface of the commit named above:
 ``nest_gemm_f32(x, w, o, M, K, N, out_t, act, stream)`` and
 ``fused_chain_f32`` with one block per M block (commit 69a36e5);
-``flash_attention_fwd`` and ``flash_decode_f32`` as they are now (commit
-273c856); ``flash_decode_proj_f32`` as it is now (commit bac22f7).  They
+``flash_attention_fwd`` as it is now (commit 273c856);
+``flash_decode_f32`` as it is now (commit bac22f7, the kernel before its
+bf16 route); ``flash_decode_proj_f32`` as it is now (commit bac22f7).  They
 are built with the port's nvcc flags.  On the same inputs, for each of
 ``chip_smoke.py``'s prefill nest_gemm shapes (M > 8) and fused_chain
 cases, this prints whether the two outputs are ``torch.equal``; for
@@ -23,7 +24,7 @@ flash_attention at ``chip_smoke.py``'s shape (fp32 and bf16),
 flash_decode at its case and the serves' shapes, and flash_decode_proj
 at ``chip_smoke.py``'s K4 case (full-width gemma-7b's attention segment
 at 4 requests, wo 4096 x 3072), whose sum orders changed, whether they
-are ``torch.allclose`` at ``check()``'s tolerance (fp32: rtol 2e-4, atol
+are ``torch.equal`` and ``torch.allclose`` at ``check()``'s tolerance (fp32: rtol 2e-4, atol
 2e-4 * d, or 2e-4 * k_out for the projection; bf16 outputs: rtol 2e-2,
 atol 2e-1, the card tests') and their largest difference.  Both device times
 follow (median [min..max] of the reps, timed as ``chip_smoke.py`` times
@@ -31,7 +32,9 @@ them); the earlier kernel is timed between two timings of this tree's.
 flash_decode_proj is timed once more as a probe, with L2 cleared by
 reading 256 MB in place of ``chip_smoke.py``'s write (``ReadFlush``): the
 write leaves up to 50 MB of dirty lines, whose write-back a kernel that
-streams 50 MB waits for; the difference is that wait.
+streams 50 MB waits for; the difference is that wait.  flash_decode's
+fp32 output digests at ``chip_smoke.DIGEST_CASES`` follow, for both
+kernels: the values ``chip_smoke.DECODE_F32_DIGESTS`` records.
 Exits non-zero if a kernel fails to build or launch, not on a difference.
 """
 
@@ -181,13 +184,12 @@ def compare(label, new, old, timer, tol=None) -> None:
     (rtol, atol) ``torch.allclose`` and the largest difference), then the
     times: this tree's kernel, the earlier one, this tree's again."""
     a_out, b_out = new(), old()
-    if tol is None:
-        same = f"torch.equal {torch.equal(a_out, b_out)}"
-    else:
+    same = f"torch.equal {torch.equal(a_out, b_out)}"
+    if tol is not None:
         a_f, b_f = a_out.float(), b_out.float()
         close = torch.allclose(a_f, b_f, rtol=tol[0], atol=tol[1])
-        same = (f"torch.allclose (rtol {tol[0]}, atol {tol[1]}) {close}, "
-                f"max |diff| {float((a_f - b_f).abs().max()):.3g}")
+        same += (f", torch.allclose (rtol {tol[0]}, atol {tol[1]}) {close},"
+                 f" max |diff| {float((a_f - b_f).abs().max()):.3g}")
     del a_out, b_out
     a, b, c = timer(new), timer(old), timer(new)
     print(f"  {label} | {same} | this tree {cs.spread(a)} then "
@@ -260,6 +262,11 @@ def compare_decode(old, gen, timer) -> None:
                 (cs.RTOL, cs.RTOL * d))
     floor = timer(cs.launch_floor)
     print(f"  empty kernel (launch floor): {cs.spread(floor)}", flush=True)
+    new, earlier = (cs.decode_digests(fn) for fn in (fa.flash_decode,
+                                                     old.flash_decode))
+    for case, a, b in zip(cs.DIGEST_CASES, new, earlier):
+        print(f"  fp32 digest {case[:5]}: this tree {a} earlier {b} "
+              f"(equal {a == b})", flush=True)
 
 
 def compare_decode_proj(old, gen, timer) -> None:

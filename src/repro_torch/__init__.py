@@ -4,7 +4,7 @@ A second package beside the JAX/Pallas one (``repro``), with the same
 sub-package and module names so each counterpart is easy to find.  It
 imports ``torch`` and never ``jax``, and nothing of ``repro``.
 
-Ported so far (the serving main path):
+Ported so far:
 
   configs   model and FEATHER+ configurations
   obs       span tracer, metrics registry, exporters
@@ -17,6 +17,9 @@ Ported so far (the serving main path):
             ``InterpreterBackend`` (``"interpreter"``)
   runtime   ProgramCache, ModelExecutable, Scheduler
   dist      ArrayMesh, the GEMM axis policy, serving snapshots
+  models    the model zoo's dense, vlm and ssm families as torch.nn
+  serve     the batched serving Engine
+  launch    ``python -m repro_torch.launch.serve``
 
 Entry points run on the card by default (``device="cuda"``); the plain
 versions run only for tensors on the CPU (``device="cpu"``).

@@ -1,4 +1,5 @@
-// Batched ragged decode attention for Hopper, fp32, shaped for latency.
+// Batched ragged decode attention for Hopper, fp32 or bf16 operands,
+// shaped for latency.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_decode /
 // _decode_kernel (the Pallas TPU kernel that advances a whole decode
@@ -9,6 +10,14 @@
 // (max, sum, acc); positions at or past len_b are masked, a masked score
 // contributes p = 0 (a request of length 0 gives zeros), and there is no
 // default d**-0.5 scale (the GEMM stream's score GEMM carries none).
+//
+// Operand types, as the TPU kernel (which is generic over them): q, k and
+// v are all fp32 or all bf16.  Scores, the running max and sum and the
+// P V accumulator are fp32; p is rounded to v's type before the P V
+// product (the sum l takes p unrounded) and the output is stored in q's
+// type.  A 16-byte cp.async carries 4 fp32 or 8 bf16 elements; the fp32
+// instance does the same operations in the same order as the kernel
+// before the bf16 route was added (chip_smoke.py holds it bit-equal).
 //
 // What bounds it on an H100: every q, k and v element is read once and
 // used for 2 flops, so the bytes bound it; but at the serve's shapes (up
@@ -36,6 +45,7 @@
 //   than the barrier it saves: 0.0073 against 0.0070 ms at the serve's
 //   shape on an H100 (compare_kernels.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +60,54 @@ constexpr int kStrip = 64;               // columns of v a block
 constexpr int kWarpCols = kStrip / kWarps;  // 16: a lane's column and half
 constexpr int kKeys = kTile / 2;         // positions in a half
 constexpr float kNegInf = -1e30f;
+
+// An operand type: elements in 16 bytes, the fp32 value of an element,
+// an fp32 value stored as one, and p as it enters P V (rounded to v's
+// type).
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int kVec = 4;
+  __device__ static float get(float x) { return x; }
+  __device__ static float put(float x) { return x; }
+  __device__ static float round(float p) { return p; }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static float get(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ static __nv_bfloat16 put(float x) { return __float2bfloat16(x); }
+  __device__ static float round(float p) {
+    return __bfloat162float(__float2bfloat16(p));
+  }
+};
+
+// s + a . b over one 16-byte chunk of each row, in element order
+__device__ __forceinline__ float dot16(const float* a, const float* b,
+                                       float s) {
+  const float4 x = *reinterpret_cast<const float4*>(a);
+  const float4 y = *reinterpret_cast<const float4*>(b);
+  s = fmaf(x.x, y.x, s);
+  s = fmaf(x.y, y.y, s);
+  s = fmaf(x.z, y.z, s);
+  s = fmaf(x.w, y.w, s);
+  return s;
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* a,
+                                       const __nv_bfloat16* b, float s) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(xp[i]), w = __bfloat1622float2(yp[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -66,69 +124,72 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [r0, r0 + rows) of a row-major [n_rows, width] matrix, columns
-// [c0, c0 + cols), into shared memory rows of `stride` floats; columns
+// [c0, c0 + cols), into shared memory rows of `stride` elements; columns
 // past `width` and rows past n_rows are zero.  VEC: 16-byte cp.async
 // (width, c0 and the base 16-byte aligned); else element copies.
-template <bool VEC>
-__device__ __forceinline__ void stage(float* dst, int stride,
-                                      const float* src, int width, int r0,
-                                      int rows, int n_rows, int c0,
-                                      int cols) {
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage(T* dst, int stride, const T* src,
+                                      int width, int r0, int rows,
+                                      int n_rows, int c0, int cols) {
   if constexpr (VEC) {
-    const int chunks = cols / 4;
+    constexpr int kVec = Elem<T>::kVec;
+    const int chunks = cols / kVec;
     for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-      const int r = i / chunks, c = (i % chunks) * 4;
+      const int r = i / chunks, c = (i % chunks) * kVec;
       const bool in = r0 + r < n_rows && c0 + c < width;
-      const float* g = in ? src + (size_t)(r0 + r) * width + c0 + c : src;
+      const T* g = in ? src + (size_t)(r0 + r) * width + c0 + c : src;
       cp_async16(dst + r * stride + c, g, in ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
       const int r = i / cols, c = i % cols;
       const bool in = r0 + r < n_rows && c0 + c < width;
-      dst[r * stride + c] =
-          in ? src[(size_t)(r0 + r) * width + c0 + c] : 0.0f;
+      dst[r * stride + c] = in ? src[(size_t)(r0 + r) * width + c0 + c]
+                               : Elem<T>::put(0.0f);
     }
   }
 }
 
 // grid (strips of kStrip columns of dv, groups of kRows query rows,
 // requests)
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
+    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
                         const int* __restrict__ lengths,
-                        float* __restrict__ o, int sq, int skv, int d,
-                        int dv, int dp, int qrows, float scale) {
-  // dp: d padded to a multiple of 8; rows of q and k are dp + 4 floats;
-  // qrows = min(sq, kRows) rows of q
+                        T* __restrict__ o, int sq, int skv, int d, int dv,
+                        int dp, int qrows, float scale) {
+  // dp: d padded to a multiple of 8; rows of q and k are dp elements and
+  // 16 bytes more; qrows = min(sq, kRows) rows of q
+  using E = Elem<T>;
   extern __shared__ __align__(16) float smem[];
-  const int ds = dp + 4;
-  float* qs = smem;                              // [qrows, ds]
-  float* ks = qs + qrows * ds;                   // [2][kTile, ds]
-  float* vs = ks + 2 * kTile * ds;               // [2][kTile, kStrip]
-  float* ss = vs + 2 * kTile * kStrip;           // [kRows, kTile] scores
+  const int ds = dp + E::kVec;
+  const int n_chunks = dp / E::kVec;             // 16-byte chunks a row
+  T* qs = reinterpret_cast<T*>(smem);            // [qrows, ds]
+  T* ks = qs + qrows * ds;                       // [2][kTile, ds]
+  T* vs = ks + 2 * kTile * ds;                   // [2][kTile, kStrip]
+  float* ss = reinterpret_cast<float*>(vs + 2 * kTile * kStrip);
+                                                 // [kRows, kTile] scores
 
   const int c0 = blockIdx.x * kStrip;
   const int row0 = blockIdx.y * kRows;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* qb = q + (size_t)b * sq * d;
-  const float* kb = k + (size_t)b * skv * d;
-  const float* vb = v + (size_t)b * skv * dv;
+  const T* qb = q + (size_t)b * sq * d;
+  const T* kb = k + (size_t)b * skv * d;
+  const T* vb = v + (size_t)b * skv * dv;
   const int rows = min(kRows, sq - row0);
 
   // everything the first tile needs, in flight together with the length
-  stage<VEC>(qs, ds, qb, d, row0, qrows, sq, 0, dp);
-  stage<VEC>(ks, ds, kb, d, 0, kTile, skv, 0, dp);
-  stage<VEC>(vs, kStrip, vb, dv, 0, kTile, skv, c0, kStrip);
+  stage<T, VEC>(qs, ds, qb, d, row0, qrows, sq, 0, dp);
+  stage<T, VEC>(ks, ds, kb, d, 0, kTile, skv, 0, dp);
+  stage<T, VEC>(vs, kStrip, vb, dv, 0, kTile, skv, c0, kStrip);
   cp_async_commit();
   const int len = min(max(lengths[b], 0), skv);
   const int n_tiles = (len + kTile - 1) / kTile;
 
-  // scoring: a thread takes position `pos` over every kSeg-th float4 of d
+  // scoring: a thread takes position `pos` over every kSeg-th 16-byte
+  // chunk of d
   const int pos = threadIdx.x / kSeg, seg = threadIdx.x % kSeg;
   // P V: a lane's column of the strip and half of the positions
   const int col = warp * kWarpCols + lane % kWarpCols;
@@ -143,44 +204,32 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int buf = tile & 1;
-    const float* kt = ks + buf * kTile * ds;
-    const float* vt = vs + buf * kTile * kStrip;
+    const T* kt = ks + buf * kTile * ds;
+    const T* vt = vs + buf * kTile * kStrip;
     cp_async_wait<0>();
     __syncthreads();                     // tile in; tile - 1 read by all
     if (tile + 1 < n_tiles) {
       const int nxt = (tile + 1) * kTile;
-      stage<VEC>(ks + (buf ^ 1) * kTile * ds, ds, kb, d, nxt, kTile, skv, 0,
-                 dp);
-      stage<VEC>(vs + (buf ^ 1) * kTile * kStrip, kStrip, vb, dv, nxt,
-                 kTile, skv, c0, kStrip);
+      stage<T, VEC>(ks + (buf ^ 1) * kTile * ds, ds, kb, d, nxt, kTile, skv,
+                    0, dp);
+      stage<T, VEC>(vs + (buf ^ 1) * kTile * kStrip, kStrip, vb, dv, nxt,
+                    kTile, skv, c0, kStrip);
       cp_async_commit();
     }
     const int n_valid = min(kTile, len - tile * kTile);
 
-    const float4* kr = reinterpret_cast<const float4*>(kt + pos * ds);
+    const T* kr = kt + pos * ds;
     for (int i = 0; i < rows; ++i) {
-      const float4* qr = reinterpret_cast<const float4*>(qs + i * ds);
+      const T* qr = qs + i * ds;
+      // two independent chains over alternate chunks, each in element
+      // order
       float s0 = 0.0f, s1 = 0.0f;
       int c = seg;
-      for (; c + kSeg < dp / 4; c += 2 * kSeg) {
-        const float4 a = qr[c], bb = kr[c];
-        const float4 a2 = qr[c + kSeg], b2 = kr[c + kSeg];
-        s0 = fmaf(a.x, bb.x, s0);
-        s1 = fmaf(a2.x, b2.x, s1);
-        s0 = fmaf(a.y, bb.y, s0);
-        s1 = fmaf(a2.y, b2.y, s1);
-        s0 = fmaf(a.z, bb.z, s0);
-        s1 = fmaf(a2.z, b2.z, s1);
-        s0 = fmaf(a.w, bb.w, s0);
-        s1 = fmaf(a2.w, b2.w, s1);
+      for (; c + kSeg < n_chunks; c += 2 * kSeg) {
+        s0 = dot16(qr + c * E::kVec, kr + c * E::kVec, s0);
+        s1 = dot16(qr + (c + kSeg) * E::kVec, kr + (c + kSeg) * E::kVec, s1);
       }
-      if (c < dp / 4) {
-        const float4 a = qr[c], bb = kr[c];
-        s0 = fmaf(a.x, bb.x, s0);
-        s0 = fmaf(a.y, bb.y, s0);
-        s0 = fmaf(a.z, bb.z, s0);
-        s0 = fmaf(a.w, bb.w, s0);
-      }
+      if (c < n_chunks) s0 = dot16(qr + c * E::kVec, kr + c * E::kVec, s0);
       float s = s0 + s1;
 #pragma unroll
       for (int off = kSeg / 2; off > 0; off >>= 1)
@@ -199,6 +248,7 @@ __global__ void __launch_bounds__(kThreads)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_run[r], mx);
       const float p = x > kNegInf / 2 ? expf(x - m_new) : 0.0f;
+      const float pr = E::round(p);      // p as it enters P V
       float psum = p;
 #pragma unroll
       for (int off = kTile / 2; off > 0; off >>= 1)
@@ -210,7 +260,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < kKeys; ++jj) {
         const int j = half * kKeys + jj;
-        pv = fmaf(__shfl_sync(0xffffffffu, p, j), vt[j * kStrip + col], pv);
+        pv = fmaf(__shfl_sync(0xffffffffu, pr, j), E::get(vt[j * kStrip + col]),
+                  pv);
       }
       pv += __shfl_xor_sync(0xffffffffu, pv, 16);
       acc[r] = acc[r] * alpha + pv;
@@ -224,24 +275,27 @@ __global__ void __launch_bounds__(kThreads)
     if (r >= rows) break;
     const float inv = 1.0f / fmaxf(l_run[r], 1e-30f);
     if (c0 + col < dv)
-      o[((size_t)b * sq + row0 + r) * dv + c0 + col] = acc[r] * inv;
+      o[((size_t)b * sq + row0 + r) * dv + c0 + col] = E::put(acc[r] * inv);
   }
 }
 
+template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* o, int B, int sq, int skv,
                    int d, int dv, float scale, cudaStream_t stream) {
+  constexpr int kVec = Elem<T>::kVec;
   const int dp = (d + 7) / 8 * 8;
   const int qrows = sq < kRows ? sq : kRows;
   const size_t smem =
-      sizeof(float) * ((size_t)(qrows + 2 * kTile) * (dp + 4) +
-                       (size_t)2 * kTile * kStrip + (size_t)kRows * kTile);
-  const bool vec = d % 4 == 0 && dv % 4 == 0 &&
+      sizeof(T) * ((size_t)(qrows + 2 * kTile) * (dp + kVec) +
+                   (size_t)2 * kTile * kStrip) +
+      sizeof(float) * (size_t)kRows * kTile;
+  const bool vec = d % kVec == 0 && dv % kVec == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
                      reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-  auto kernel = vec ? flash_decode_kernel<true>
-                    : flash_decode_kernel<false>;
+  auto kernel = vec ? flash_decode_kernel<T, true>
+                    : flash_decode_kernel<T, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -250,23 +304,34 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const dim3 grid((dv + kStrip - 1) / kStrip, (sq + kRows - 1) / kRows, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(o), sq, skv, d, dv, dp, qrows, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(lengths),
+      static_cast<T*>(o), sq, skv, d, dv, dp, qrows, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B, sq, d], k [B, skv, d], v [B, skv, dv], lengths [B] int32, all
-// contiguous on the device; o [B, sq, dv].  Returns the launch's
-// cudaError_t (shared memory above 48 KB is opted into first).
+// contiguous on the device; o [B, sq, dv], in the operands' type (fp32 or
+// bf16).  Returns the launch's cudaError_t (shared memory above 48 KB is
+// opted into first).
 extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, int B, int sq,
                                 int skv, int d, int dv, float scale,
                                 void* stream) {
   if (B <= 0 || sq <= 0 || dv <= 0) return 0;
-  return static_cast<int>(launch(
+  return static_cast<int>(launch<float>(
+      q, k, v, lengths, o, B, sq, skv, d, dv, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int flash_decode_bf16(const void* q, const void* k,
+                                 const void* v, const void* lengths, void* o,
+                                 int B, int sq, int skv, int d, int dv,
+                                 float scale, void* stream) {
+  if (B <= 0 || sq <= 0 || dv <= 0) return 0;
+  return static_cast<int>(launch<__nv_bfloat16>(
       q, k, v, lengths, o, B, sq, skv, d, dv, scale,
       static_cast<cudaStream_t>(stream)));
 }

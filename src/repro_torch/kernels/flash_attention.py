@@ -4,8 +4,9 @@
 ``flash_decode(q, k, v, lengths)`` launches ``csrc/flash_decode.cu``: one
 launch advances a whole batch of decode requests, each row attending
 over its own K/V masked to its own true length, by the online-softmax
-recurrence over KV blocks.  Like the TPU kernel it applies no ``d**-0.5``
-by default: the MINISA GEMM stream's score GEMM carries none.
+recurrence over KV blocks, on fp32 or bf16 operands with fp32 sums.
+Like the TPU kernel it applies no ``d**-0.5`` by default: the MINISA
+GEMM stream's score GEMM carries none.
 
 ``flash_decode_proj(q, k, v, lengths, wo, ...)`` launches
 ``csrc/flash_decode_proj.cu``: the same attention for every request,
@@ -46,31 +47,41 @@ _PROJ_WINDOW_FLOATS = 8 * 512 + 2 * 8 * 64
 #: the widest head_dim flash_attention takes
 MAX_HEAD_DIM = 256
 
-_FN = None
+_FN: dict = {}
 _PROJ_FN = None
 _ATTN_FN = None
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = build.load("flash_decode").flash_decode_f32
+#: flash_decode's C entry for each operand type
+_DECODE_ENTRIES = {torch.float32: "flash_decode_f32",
+                   torch.bfloat16: "flash_decode_bf16"}
+
+
+def _fn(dtype):
+    fn = _FN.get(dtype)
+    if fn is None:
+        fn = getattr(build.load("flash_decode"), _DECODE_ENTRIES[dtype])
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[dtype] = fn
+    return fn
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *,
                  scale: float = 1.0) -> torch.Tensor:
-    """q [B, sq, d], k [B, skv, d], v [B, skv, dv], lengths [B] int32
-    (each <= skv) on the card; returns [B, sq, dv]."""
+    """q [B, sq, d], k [B, skv, d], v [B, skv, dv], all float32 or all
+    bfloat16, and lengths [B] int32 (each <= skv) on the card; returns
+    [B, sq, dv] in their dtype."""
     global launches
-    build.check_operand(q, "q", 3)
-    build.check_operand(k, "k", 3)
-    build.check_operand(v, "v", 3)
+    dtype = q.dtype
+    if dtype not in _DECODE_ENTRIES:
+        raise ValueError(f"flash_decode takes float32 or bfloat16, got "
+                         f"{dtype}")
+    build.check_operand(q, "q", 3, dtype)
+    build.check_operand(k, "k", 3, dtype)
+    build.check_operand(v, "v", 3, dtype)
     build.check_operand(lengths, "lengths", 1, torch.int32)
     b, sq, d = q.shape
     skv = k.shape[1]
@@ -82,11 +93,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len({t.device for t in (q, k, v, lengths)}) != 1:
         raise ValueError("q, k, v and lengths must share one device")
     dv = v.shape[2]
-    out = torch.empty((b, sq, dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, dv), dtype=dtype, device=q.device)
     with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), b, sq, skv, d, dv,
-                    float(scale), build.stream_handle())
+        err = _fn(dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(), b, sq, skv, d,
+                         dv, float(scale), build.stream_handle())
     build.raise_on_error(err, "flash_decode")
     launches += 1
     return out

@@ -68,9 +68,10 @@ def _lengths(lengths, b: int, sk: int, device) -> torch.Tensor:
 def flash_decode(q, k, v, lengths=None, *, bkv=128, scale=1.0):
     """Batched decode attention, one launch for the whole batch.
 
-    q: [B, sq, d], k, v: [B, skv, d], lengths: [B] or [B, 1] true KV
-    lengths (defaults to the full skv for every request).  ``bkv`` sets
-    the plain version's KV blocks."""
+    q: [B, sq, d], k, v: [B, skv, d], all float32 or all bfloat16 (the
+    result takes their dtype), lengths: [B] or [B, 1] true KV lengths
+    (defaults to the full skv for every request).  ``bkv`` sets the plain
+    version's KV blocks."""
     lengths = _lengths(lengths, q.shape[0], k.shape[1], q.device)
     if _on_cpu(q, k, v):
         return ref.flash_decode_ref(q, k, v, lengths, bkv=bkv, scale=scale)

@@ -127,9 +127,12 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float = 1.0) -> torch.Tensor:
     """Batched ragged decode attention by the online-softmax recurrence
     over KV blocks; request ``b`` attends to ``k[b, :lengths[b]]`` and a
-    fully masked score contributes p = 0."""
+    fully masked score contributes p = 0.  Sums run in fp32; as in the TPU
+    kernel, p is rounded to v's dtype before the PV product and the
+    result takes q's dtype (both no-ops in fp32)."""
     b, sq, d = q.shape
     sk = k.shape[1]
+    out_dtype, p_dtype = q.dtype, v.dtype
     q = q.to(torch.float32)
     k = k.to(torch.float32)
     v = v.to(torch.float32)
@@ -151,9 +154,9 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         torch.exp(s - m_new))
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p @ vb
+        acc = acc * alpha + p.to(p_dtype).to(torch.float32) @ vb
         m = m_new
-    return acc / torch.clamp_min(l, 1e-30)
+    return (acc / torch.clamp_min(l, 1e-30)).to(out_dtype)
 
 
 def flash_decode_proj_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

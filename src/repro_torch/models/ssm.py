@@ -1,0 +1,88 @@
+"""Selective state-space block, Mamba-1 (falcon-mamba-7b), on the
+hand-written scan (counterpart of the Mamba-1 half of
+``repro/models/ssm.py``).
+
+Recurrence (per channel d, state n):
+
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
+    y_t = C_t . h_t + D * x_t
+
+``da`` and ``dbx`` are formed as the JAX package's ``REPRO_SSM_UNFUSED``
+path forms them (its fused path computes the same values a chunk at a
+time): ``da = exp(dt * A)`` with dt cast to fp32 first, ``dbx`` from
+``dt * x`` multiplied in the model's dtype, then cast to fp32 and
+multiplied by B.  The scan itself is one ``kernels.ops.mamba_scan`` call
+(the ``mamba_scan`` kernel on the card, its plain version on the CPU),
+for a whole prompt or for one decode step.
+
+Mamba-2 waits for the hybrid slice (ROADMAP A.9(a)).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import Maker
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv; x: [b, l, di], w: [k, di].  Returns (y,
+    new_state), the state being the last k - 1 inputs.  The taps are
+    summed in the JAX package's order."""
+    k = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([state, x], 1)
+    y = 0
+    for i in range(k):
+        y = y + xp[:, i:i + x.shape[1]] * w[i].to(x.dtype)
+    new_state = xp[:, -(k - 1):] if k > 1 else state
+    return y + b.to(x.dtype), new_state
+
+
+class Mamba(nn.Module):
+    """``mamba_params`` and ``mamba_block``."""
+
+    def __init__(self, mk: Maker, cfg):
+        super().__init__()
+        d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+        self.di, self.n, self.dt_rank = di, n, cfg.ssm_dt_rank
+        self.w_in = mk.param((d, 2 * di))
+        self.conv_w = mk.param((cfg.ssm_d_conv, di), scale=0.5)
+        self.conv_b = mk.param((di,), init="zeros")
+        self.w_x = mk.param((di, self.dt_rank + 2 * n))
+        self.w_dt = mk.param((self.dt_rank, di))
+        self.dt_bias = mk.param((di,), init="zeros")
+        self.a_log = mk.param((di, n), init="zeros")
+        self.d_skip = mk.param((di,), init="ones")
+        self.w_out = mk.param((di, d))
+
+    def forward(self, x, state=None):
+        """x: [b, l, d] -> (y, new_state); state = {"conv": [b, k-1, di],
+        "ssm": [b, di, n] fp32} is the decode carry."""
+        di, n, r = self.di, self.n, self.dt_rank
+        dtype = x.dtype
+        xz = x @ self.w_in.to(dtype)
+        xs, z = xz[..., :di], xz[..., di:]
+        xs, new_conv = _causal_conv(xs, self.conv_w, self.conv_b,
+                                    state["conv"] if state else None)
+        xs = F.silu(xs)
+        proj = xs @ self.w_x.to(dtype)
+        # jax.nn.softplus has no threshold; torch's returns x past 20,
+        # where log1p(exp(-x)) < 2.1e-9: under 1e-8 from the JAX package's
+        dt = F.softplus(proj[..., :r] @ self.w_dt.to(dtype)
+                        + self.dt_bias.to(dtype))                # [b, l, di]
+        b_t = proj[..., r:r + n]                                 # [b, l, n]
+        c_t = proj[..., r + n:]                                  # [b, l, n]
+        a = -torch.exp(self.a_log.float())                       # [di, n]
+        h0 = (state["ssm"].float() if state else
+              x.new_zeros((x.shape[0], di, n), dtype=torch.float32))
+        da = torch.exp(dt.float()[..., None] * a)
+        dbx = (dt * xs).float()[..., None] * b_t.float()[..., None, :]
+        y, h_last = ops.mamba_scan(da, dbx, c_t.float(), h0)
+        y = y.to(dtype) + xs * self.d_skip.to(dtype)
+        y = y * F.silu(z)
+        return y @ self.w_out.to(dtype), {"conv": new_conv, "ssm": h_last}

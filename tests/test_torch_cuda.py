@@ -555,3 +555,107 @@ def test_chaos_serve_on_the_card(cuda, n_arrays, tmp_path):
         assert injector.injected.get("array_down") == 1
         assert (base_rep.n_arrays, rep.n_arrays) == (2, 1)
         assert rep.summary()["resilience"]["mesh_degraded"] == 1
+
+
+# (B * KVH, g, D, skv, dv, longest length): the model zoo's decode
+# attention in bf16, a request's GQA group as its query rows: gemma-7b
+# (g = 1) and qwen2-72b (g = 8) at the serve's batch of 4 and cache of 49,
+# and d, dv off the 8-element grid (element copies)
+ZOO_DECODE_CASES = [(64, 1, 256, 49, 256, 47), (32, 8, 128, 49, 128, 33),
+                    (3, 2, 20, 19, 28, 19)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,d,skv,dv,length", ZOO_DECODE_CASES)
+def test_flash_decode_bf16_kernel_matches_plain(cuda, b, g, d, skv, dv,
+                                                length):
+    """The bf16 route against its plain version (p rounded to bf16 before
+    P V, fp32 sums, output in bf16), ragged lengths down to 1, within a
+    bf16 place (rtol and atol 1e-2)."""
+    q = _t(_np((b, g, d)), cuda).to(torch.bfloat16)
+    k = _t(_np((b, skv, d)), cuda).to(torch.bfloat16)
+    v = _t(_np((b, skv, dv)), cuda).to(torch.bfloat16)
+    lens = torch.tensor([max(1, length - 5 * (i % 10)) for i in range(b)],
+                        dtype=torch.int32, device=cuda)
+    before = fa.launches
+    got = ops.flash_decode(q, k, v, lens, scale=d ** -0.5)
+    want = ref.flash_decode_ref(q, k, v, lens, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, g, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_flash_decode_fp32_kernel_is_the_kernel_before_bf16(cuda):
+    """The fp32 route's outputs, on exact inputs, have the digests the
+    kernel gave before its bf16 route was added: bit-equal."""
+    cs = _chip_smoke()
+    want = [cs.DECODE_F32_DIGESTS.get(c[:5]) for c in cs.DIGEST_CASES]
+    assert cs.decode_digests(fa.flash_decode) == want
+
+
+def _zoo_config(arch):
+    import dataclasses
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    cfg = reduced(get_config(arch))
+    if arch == "qwen2-72b":          # a GQA group of 4 query heads
+        cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=2)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma-7b", "qwen2-72b",
+                                  "falcon-mamba-7b"])
+def test_reduced_model_kernel_path_matches_its_cpu_path(cuda, arch):
+    """A reduced model (fp32) on the card, its attention and scan in the
+    kernels, against the same parameters on the CPU (the plain versions):
+    prefill logits and cache, then a decode step's logits, within 2e-4 +
+    2e-4 * |cpu|; one kernel launch a layer at prefill and a decode
+    step."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import expand_cache
+    cfg = _zoo_config(arch)
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 12)))
+    ssm_family = cfg.family == "ssm"
+    kernel, count = (ms, "launches") if ssm_family else \
+        (fa, "attention_launches")
+    before = getattr(kernel, count)
+    want, cache_c = cpu.prefill(toks)
+    got, cache_g = card.prefill(toks)
+    torch.cuda.synchronize()
+    assert getattr(kernel, count) == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+    def leaves(cache):
+        layers = cache["layers"]
+        return list(layers.values() if ssm_family else layers)
+    for c, g in zip(leaves(cache_c), leaves(cache_g)):
+        torch.testing.assert_close(g.cpu(), c, rtol=2e-4, atol=2e-4)
+    cache_c, cache_g = (expand_cache(m, c, 2, 16) for m, c in
+                        ((cpu, cache_c), (card, cache_g)))
+    tok = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 1)))
+    pos = torch.tensor([12, 9], dtype=torch.int32)
+    kernel = ms if ssm_family else fa
+    before = kernel.launches
+    want, _ = cpu.decode_step(tok, cache_c, pos)
+    got, _ = card.decode_step(tok, cache_g, pos)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

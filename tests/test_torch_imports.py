@@ -74,6 +74,20 @@ def test_entry_points_default_to_the_card():
         dec.run("interpreter")
     be = CudaBackend(cfg, device="cpu")
     assert be.device.type == "cpu" and be.name == "cuda"
+    # the model zoo's serving path
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    mcfg = reduced(get_config("gemma-7b"))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        build_model(mcfg)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Engine(build_model(mcfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        launch_serve.main(["--reduced"])
+    assert build_model(mcfg, device="cpu").device.type == "cpu"
 
 
 def test_device_environment_is_recorded(capsys):

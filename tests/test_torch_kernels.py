@@ -76,6 +76,39 @@ def test_flash_decode_plain_matches_pallas(qshape, skv, lengths, bkv):
         assert not got[list(lengths).index(0)].any()
 
 
+def _from_jnp(x, dtype):
+    """The exact values of a (possibly bf16) JAX array as a torch tensor."""
+    return torch.from_numpy(np.array(x, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("qshape,skv,lengths,bkv", DECODE_CASES + [
+    ((6, 8, 32), 40, (40, 33, 1, 17, 0, 9), 16),   # a GQA group of 8 rows
+])
+def test_flash_decode_bf16_plain_matches_pallas(qshape, skv, lengths, bkv):
+    """bf16 operands, as the model's cache holds them: the TPU kernel
+    scores with fp32 sums, rounds p to v's dtype before P V and stores in
+    q's dtype; the plain version does the same (on these inputs the two
+    are equal).  rtol and atol 1e-3 take no bf16 place of an output above
+    0.5, so p left in fp32 (off by 0.004 to 0.008 here) would fail."""
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16)
+                  for a in _decode_inputs(qshape, skv))
+    lens = np.asarray(lengths, np.int32)
+    want = jops.flash_decode(jq, jk, jv, lens, bkv=bkv, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    tq, tk, tv = (_from_jnp(x, torch.bfloat16) for x in (jq, jk, jv))
+    got = ops.flash_decode(tq, tk, tv, lens, bkv=bkv)
+    assert got.dtype == torch.bfloat16 and got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=1e-3,
+                               atol=1e-3)
+    # the fp32 path of the same function is unchanged: fp32 in, fp32 out
+    f32 = ops.flash_decode(tq.float(), tk.float(), tv.float(), lens,
+                           bkv=bkv)
+    assert f32.dtype == torch.float32
+    if 0 in lengths:
+        assert not got[list(lengths).index(0)].float().any()
+
+
 @pytest.mark.parametrize("b,sq,skv,d,lengths,m_out,k_out,n_out",
                          PROJ_CASES)
 def test_flash_decode_proj_plain_matches_pallas(b, sq, skv, d, lengths,
@@ -89,11 +122,6 @@ def test_flash_decode_proj_plain_matches_pallas(b, sq, skv, d, lengths,
                                 m_out=m_out, k_out=k_out).numpy()
     assert got.shape == want.shape == (b, m_out, n_out)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
-def _from_jnp(x, dtype):
-    """The exact values of a (possibly bf16) JAX array as a torch tensor."""
-    return torch.from_numpy(np.array(x, np.float32)).to(dtype)
 
 
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 2e-5, 2e-4),
