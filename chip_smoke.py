@@ -62,8 +62,10 @@ Phases (any failure exits non-zero; no phase catches its own):
      fused_chain launch an array for each sharded fused segment); chaos on
      the card, flat and with an array going down; a serve resumed from a
      snapshot file.
- 10. the model zoo: gemma-7b (28 layers) and falcon-mamba-7b (64 layers)
-     at full width and depth in bf16, built and served as
+ 10. the model zoo: gemma-7b (28 layers), falcon-mamba-7b (64) and
+     granite-moe-3b-a800m (32) at full width and depth, and
+     deepseek-v2-236b at full width cut to 4 layers (1 dense, 3 MoE: the
+     whole model is 472 GB in bf16), in bf16, built and served as
      ``python -m repro_torch.launch.serve --arch ARCH`` does (batch 4,
      prompt 32, 16 greedy steps, weights drawn on the card from a seeded
      generator): exact launches (flash_attention once a layer at prefill,
@@ -73,10 +75,16 @@ Phases (any failure exits non-zero; no phase catches its own):
      the logits of a prefill and a decode step held against the same
      model on the plain versions (and shown to move past the tolerance
      when the last layer's kernel results are dropped: seeded weights make
-     greedy tokens repeat, so tokens alone see no kernel fault), the
-     decode step beside the bound of reading every weight once; then both
-     models at depth 2 in fp32: decode after a prefill equal to the longer
-     prefill (rtol and atol 2e-3).
+     greedy tokens repeat, so tokens alone see no kernel fault; an MoE
+     model, which amplifies a ulp chaotically, over 16 requests with the
+     plain versions fed each layer's input and experts from the kernel
+     run, every layer's contribution held too, and the share of routes
+     the plain versions would choose alike on their own logged),
+     the decode step beside the bound of reading every weight once; then
+     every model at depth 2 in fp32 (the MoE models at capacity factor
+     experts / top-k, which drops nothing): decode after a prefill equal
+     to the longer prefill (rtol and atol 2e-3).  Phase 2 also times flash_attention and flash_decode at
+     MLA's shapes (rows flash_attention_mla and flash_decode_mla).
 
 Phase 10 runs last, after phase 9's weights are freed, and frees what it
 makes.  Ends with the ``kernels`` JSON line (a row per route, each with
@@ -122,6 +130,8 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nest_gemm as ng  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.transformer import DecoderLayer  # noqa: E402
 from repro_torch.serve import expand_cache  # noqa: E402
 from repro_torch.runtime import (ModelExecutable, ProgramCache,  # noqa: E402
                                  Scheduler, autotune_segment, segment_key)
@@ -798,6 +808,85 @@ def check_flash_attention_bf16(timer, gen) -> dict:
     log(f"K5 {name}: causal | max_err {err:.3g} | ms {spread(ms_)} plain "
         f"{plain['ms']:.4f} sdpa {lib['ms']:.4f} ({lib['route']}) bound "
         f"{b_ms:.6f} ({b_by})")
+    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
+
+
+#: MLA's prefill attention in deepseek-v2-236b's serve: [B * H, S, D] =
+#: [4 * 128, 32, 192] causal, values 128 wide (zero-padded to 192 by
+#: ``ops.flash_attention``, as the path runs it)
+MLA_ATTN_CASE = (512, 32, 192, 128)
+#: MLA's absorbed decode at the serve's last step: a request's 128 heads
+#: as its query rows, q [4, 128, 512 + 64] against K [4, 49, 576] and V
+#: (the latent) [4, 49, 512], lengths 47, scale 192**-0.5
+MLA_DECODE_CASE = (4, 128, 49, 576, 512, 47)
+
+
+def check_flash_attention_mla(timer, gen) -> dict:
+    """The bf16 route at ``MLA_ATTN_CASE`` (v zero-padded, as the path
+    calls it) against its plain version, timed beside SDPA in bf16 on the
+    unpadded 128-wide values (every route that takes them, the fastest
+    kept) and its bound (the function's true widths): the kernels JSON
+    row ``flash_attention_mla``."""
+    bh, s, d, dv = MLA_ATTN_CASE
+    q = (torch.randn(bh, s, d, device="cuda", generator=gen) * 8.0
+         ).to(torch.bfloat16)
+    k = torch.randn(bh, s, d, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    v = torch.randn(bh, s, dv, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    vp = torch.cat([v, v.new_zeros(bh, s, d - dv)], -1)
+    got = fa.flash_attention(q, k, vp, causal=True)
+    want = ref.flash_attention_ref(q, k, vp, causal=True)
+    assert not got[..., dv:].any()
+    name = f"flash_attention bf16 MLA {MLA_ATTN_CASE}"
+    err = check(name, got.float(), want.float(), d)
+    ms_ = timer(lambda: fa.flash_attention(q, k, vp, causal=True))
+    plain = timer(lambda: ref.flash_attention_ref(q, k, vp, causal=True))
+    lib = sdpa_library(timer, name, want[..., :dv],
+                       lambda o: o[0], q[None], k[None], v[None],
+                       is_causal=True)
+    pairs = bh * s * (s + 1) / 2                  # causal pairs only
+    nbytes = 2.0 * bh * s * (2 * d + 2 * dv)
+    flops = 2.0 * pairs * (d + dv)
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+    log(f"K5 {name}: causal | max_err {err:.3g} | ms {spread(ms_)} plain "
+        f"{plain['ms']:.4f} sdpa {lib['ms']:.4f} ({lib['route']}) bound "
+        f"{b_ms:.6f} ({b_by})")
+    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
+
+
+def check_flash_decode_mla(timer, gen) -> dict:
+    """The bf16 route at ``MLA_DECODE_CASE`` (d 576 and dv 512: shared
+    memory past 48 KB; 128 query rows: 8 row groups) against its plain
+    version, timed beside SDPA in bf16 and its bound: the kernels JSON row
+    ``flash_decode_mla``."""
+    b, sq, skv, d, dv, length = MLA_DECODE_CASE
+    scale = 192 ** -0.5
+    q = (torch.randn(b, sq, d, device="cuda", generator=gen) / scale
+         ).to(torch.bfloat16)
+    k = (torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
+         ).to(torch.bfloat16)
+    # v at 2x: an output RMS ~2, over 10x check()'s atol at k = d
+    v = (torch.randn(b, skv, dv, device="cuda", generator=gen) * 2.0
+         ).to(torch.bfloat16)
+    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    got = fa.flash_decode(q, k, v, lens, scale=scale)
+    want = ref.flash_decode_ref(q, k, v, lens, scale=scale)
+    name = f"flash_decode bf16 MLA {MLA_DECODE_CASE[:5]}"
+    err = check(name, got.float(), want.float(), d)
+    mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])
+    ms_ = timer(lambda: fa.flash_decode(q, k, v, lens, scale=scale))
+    plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens, scale=scale))
+    lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
+                       k[:, None], v[:, None],
+                       attn_mask=mask[:, None, None, :], scale=scale)
+    used = b * length                # the KV rows these lengths need
+    nbytes = 2.0 * (b * sq * d + used * (d + dv) + b * sq * dv) + 4 * b
+    flops = 2.0 * sq * used * (d + dv)
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+    log(f"K3 {name}: lengths {length} | max_err {err:.3g} | ms "
+        f"{spread(ms_)} plain {plain['ms']:.4f} sdpa {lib['ms']:.4f} "
+        f"({lib['route']}) bound {b_ms:.6f} ({b_by})")
     return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
 
 
@@ -1562,6 +1651,43 @@ class Capture(Swap):
         return out
 
 
+class Routes:
+    """While installed, wraps ``models.moe.choose`` and ``models.moe.route``
+    and keeps each MoE layer call's routes: every token's own choice of
+    experts [B, S, k] and whether each routed choice kept its slot.  With
+    ``replay`` (another run's Routes) each call routes its tokens to the
+    experts that run chose at the same call, weighted by this run's
+    probabilities, and keeps its own choice beside them."""
+
+    def __init__(self, replay: "Routes | None" = None):
+        self.replay = replay
+
+    def __enter__(self):
+        self.chosen, self.kept = [], []
+        self.orig = moe_mod.choose, moe_mod.route
+        moe_mod.choose, moe_mod.route = self.choose, self.route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.choose, moe_mod.route = self.orig
+
+    def choose(self, probs, top_k):
+        idx = self.orig[0](probs, top_k)
+        self.chosen.append(idx.clone())
+        return idx if self.replay is None else \
+            self.replay.chosen[len(self.chosen) - 1]
+
+    def route(self, gate_idx, num_experts, cap):
+        out = self.orig[1](gate_idx, num_experts, cap)
+        order, keep = out[0], out[3]
+        keep = torch.gather(keep, 1, torch.argsort(order, dim=1))
+        self.kept.append(keep.view_as(gate_idx))
+        return out
+
+    def dropped(self) -> int:
+        return sum(int((~keep).sum()) for keep in self.kept)
+
+
 def zoo_kernel_checks(arch: str, caps: list) -> None:
     """Each captured call (of the first and the last layer) against its
     plain version on the same card tensors."""
@@ -1591,24 +1717,32 @@ def zoo_kernel_checks(arch: str, caps: list) -> None:
                 bool(torch.isfinite(o).all()) for o in outs), (arch, i, errs)
 
 
-def zoo_serve(arch: str, name_limit: str, device="cuda") -> dict:
-    """``arch`` at full width and depth in its published dtype, built and
-    served as ``python -m repro_torch.launch.serve --arch ARCH`` builds
-    and serves it (the CLI's defaults): launches exact, two serves'
-    tokens identical, the first and the last layer's kernel calls held
-    against their plain versions (in the second serve), the logits held
-    against the plain versions' (``zoo_logits_gate``), the decode step
-    beside the bound of reading every weight once.  Returns the first
-    serve's launches."""
+def zoo_serve(arch: str, name_limit: str, device="cuda",
+              depth: int | None = None) -> dict:
+    """``arch`` at full width and depth (or cut to ``depth`` layers) in
+    its published dtype, built and served as ``python -m
+    repro_torch.launch.serve --arch ARCH`` builds and serves it (the
+    CLI's defaults): launches exact, two serves' tokens identical, the
+    first and the last layer's kernel calls held against their plain
+    versions (in the second serve), the logits held against the plain
+    versions' (``zoo_logits_gate``), the decode step beside the bound of
+    reading every weight once.  Returns the first serve's launches."""
     args = launch_serve.parse(["--arch", arch, *ZOO_ARGV, "--device",
                                str(device)])
+    full = get_config(arch)
+    cfg = None if depth is None else dataclasses.replace(full,
+                                                         num_layers=depth)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, prompts, kw = launch_serve.setup(args)
+    engine, prompts, kw = launch_serve.setup(args, cfg)
     torch.cuda.synchronize()
     model, cfg = engine.model, engine.model.cfg
     wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"zoo {arch}: {cfg.num_layers} layers, "
+    cut = ("" if depth is None else
+           f" (depth cut from {full.num_layers}: the whole model, "
+           f"{build_model(full, device='meta').param_count() * 2 / 1e9:.0f}"
+           f" GB in bf16, fits no card)")
+    log(f"zoo {arch}: {cfg.num_layers} layers{cut}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
         f"parameters, {wbytes / 1e9:.2f} GB {cfg.dtype}, drawn on the card "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1678,6 +1812,10 @@ def zoo_serve(arch: str, name_limit: str, device="cuda") -> dict:
 #: the largest relative L2 distance (a row's) between the zoo's logits on
 #: the kernels and on their plain versions, bf16 at full depth
 ZOO_LOGITS_TOL = 2e-2
+#: requests the logits gate runs for an MoE model (the served 4 and more
+#: drawn from a seed): a request routes its tokens on its own, so each is
+#: a row whose routes may agree at every layer between the two runs
+ZOO_MOE_GATE_ROWS = 16
 
 #: each kernel wrapper's plain version
 PLAIN = {"flash_attention": ref.flash_attention_ref,
@@ -1697,6 +1835,55 @@ def zoo_logits(model, prompts, kw) -> torch.Tensor:
     return torch.stack([pre.float(), step.float()])
 
 
+def route_agreement(a: Routes, b: Routes) -> tuple[float, torch.Tensor]:
+    """The share of (token, layer, choice) experts two runs choose alike,
+    and which batch rows choose alike at every one of theirs."""
+    same = [x == y for x, y in zip(a.chosen, b.chosen, strict=True)]
+    share = sum(int(x.sum()) for x in same) / sum(x.numel() for x in same)
+    return share, torch.stack([x.flatten(1).all(1) for x in same]).all(0)
+
+
+class Layers:
+    """While installed, keeps every decoder layer call's input and output
+    hidden states, in call order.  With ``forced`` (another run's Layers)
+    each call takes the input that run's same call had: a teacher-forced
+    run, in which a layer's output differs from that run's only by what
+    the layer itself computes differently."""
+
+    def __init__(self, model, forced: "Layers | None" = None):
+        self.layers = [m for m in model.modules()
+                       if isinstance(m, DecoderLayer)]
+        self.forced = forced
+
+    def __enter__(self):
+        self.ins, self.outs = [], []
+        self.hooks = [h for m in self.layers for h in (
+            m.register_forward_pre_hook(self.pre),
+            m.register_forward_hook(self.post))]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+    def pre(self, module, args):
+        if self.forced is not None:
+            return (self.forced.ins[len(self.ins)], *args[1:])
+
+    def post(self, module, args, out):
+        self.ins.append(args[0].clone())
+        self.outs.append(out[0].clone())
+
+    def contributions(self) -> list[torch.Tensor]:
+        """Each call's output minus its input: what the layer added."""
+        return [o.float() - i.float() for i, o in zip(self.ins, self.outs)]
+
+
+def _rel(a, b) -> float:
+    """The largest relative L2 distance of a row (the last axis)."""
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
 def zoo_logits_gate(arch: str, model, prompts, kw, mods) -> None:
     """The served model's logits on the kernels against the same model
     with every kernel wrapper swapped for its plain version, within
@@ -1705,12 +1892,12 @@ def zoo_logits_gate(arch: str, model, prompts, kw, mods) -> None:
     at scale 1.0), so tokens alone could not see a wrong kernel; the gate
     is shown to see one: dropping the last layer's kernel results (the
     plain versions, the last layer's outputs zeroed) must move the logits
-    by more than the tolerance."""
+    by more than the tolerance.  An MoE model has a gate of its own
+    (``zoo_moe_gate``)."""
+    if model.cfg.moe_enabled:
+        return zoo_moe_gate(arch, model, prompts, kw, mods)
     layers = model.cfg.num_layers
     prompts = torch.as_tensor(prompts, device=model.device)
-
-    def rel(a, b):
-        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
 
     def swapped(zero):
         with contextlib.ExitStack() as stack:
@@ -1724,24 +1911,117 @@ def zoo_logits_gate(arch: str, model, prompts, kw, mods) -> None:
     # runs once a layer in both; attention once a layer in each kernel
     fault = swapped(lambda n: (layers - 1, 2 * layers - 1)
                     if n == "mamba_scan" else (layers - 1,))
-    err, moved = rel(got, plain), rel(fault, plain)
+    err, moved = _rel(got, plain), _rel(fault, plain)
     log(f"zoo {arch}: logits on the kernels against the plain versions: "
         f"relative L2 {err:.3g} (tolerance {ZOO_LOGITS_TOL}; prefill "
-        f"{rel(got[0], plain[0]):.3g}, decode {rel(got[1], plain[1]):.3g}), "
-        f"max |diff| {float((got - plain).abs().max()):.3g} on logits of "
-        f"max {float(plain.abs().max()):.1f}; the last layer's kernel "
-        f"results dropped move them {moved:.3g}")
+        f"{_rel(got[0], plain[0]):.3g}, decode "
+        f"{_rel(got[1], plain[1]):.3g}), max |diff| "
+        f"{float((got - plain).abs().max()):.3g} on logits of max "
+        f"{float(plain.abs().max()):.1f}; the last layer's kernel results "
+        f"dropped move them {moved:.3g}")
     assert bool(torch.isfinite(got).all()), arch
     assert err <= ZOO_LOGITS_TOL < moved, (arch, err, moved)
+
+
+def zoo_moe_gate(arch: str, model, prompts, kw, mods) -> None:
+    """``zoo_logits_gate`` for an MoE model, over ``ZOO_MOE_GATE_ROWS``
+    requests.  A seeded MoE model amplifies a ulp: one bf16 ulp added to
+    one element after the first layer moves granite-moe-3b-a800m's
+    logits by ~5e-2 (logged here, on the kernel run's experts), and its
+    top-k choices flip with it, so the plain versions run as they are
+    (logged: their logits' distance, the share of (token, layer, choice)
+    experts they choose as the kernel run does, and the requests that
+    agree at every layer) cannot be held to the kernels at
+    ZOO_LOGITS_TOL.  The gate runs them teacher-forced
+    (``Layers(forced=)``: every layer call fed the kernel run's input) on
+    the kernel run's experts (``Routes(replay=)``): each layer's
+    contribution (output minus input) and the logits must be within
+    ZOO_LOGITS_TOL, and dropping the last layer's kernel results must
+    move that layer's contribution past it (the logits' move is logged:
+    at granite's depth the last layer's attention is a small part of
+    them)."""
+    layers = model.cfg.num_layers
+    prompts = torch.as_tensor(prompts, device=model.device)
+    more = torch.randint(0, model.cfg.vocab_size,
+                         (ZOO_MOE_GATE_ROWS - prompts.shape[0],
+                          prompts.shape[1]), device=model.device,
+                         generator=torch.Generator(
+                             model.device).manual_seed(3))
+    prompts = torch.cat([prompts, more.to(prompts.dtype)])
+
+    def nudge(module, args, out):
+        """One bf16 ulp more at one element of the layer's output."""
+        x = out[0].clone()
+        x.view(-1)[0] *= 1 + 2 ** -7
+        return (x, *out[1:])
+
+    def run(zero=None, teacher=(None, None), nudged=False):
+        with contextlib.ExitStack() as stack:
+            routes = stack.enter_context(Routes(teacher[0]))
+            calls = stack.enter_context(Layers(model.net, teacher[1]))
+            for n, mod in (mods.items() if zero else ()):
+                stack.enter_context(Swap(mod, n, PLAIN[n], zero(n)))
+            if nudged:
+                hook = calls.layers[0].register_forward_hook(nudge)
+                stack.callback(hook.remove)
+            return zoo_logits(model, prompts, kw), routes, calls
+
+    got, routes, calls = run()
+    free, free_routes, _ = run(lambda n: ())
+    # the kernel run's experts, each layer's input the run's own; then
+    # the same with one ulp added after the first layer
+    replayed = run(lambda n: (), (routes, None))[0]
+    ulp = run(lambda n: (), (routes, None), nudged=True)[0]
+    plain, _, plain_calls = run(lambda n: (), (routes, calls))
+    # the last layer's attention call at prefill and at the decode step
+    fault, _, fault_calls = run(lambda n: (layers - 1,), (routes, calls))
+    share, agree = route_agreement(routes, free_routes)
+    err, moved = _rel(got, plain), _rel(fault, plain)
+    parts = [_rel(a, b) for a, b in zip(calls.contributions(),
+                                        plain_calls.contributions())]
+    worst = max(range(len(parts)), key=parts.__getitem__)
+    # the last layer's calls: at prefill and at the decode step
+    last = (layers - 1, 2 * layers - 1)
+    dropped = max(_rel(fault_calls.contributions()[i],
+                       plain_calls.contributions()[i]) for i in last)
+    log(f"zoo {arch}: on their own, the plain versions' logits are "
+        f"{_rel(got, free):.3g} (relative L2) from the kernels', and "
+        f"{share:.6f} of {sum(x.numel() for x in routes.chosen)} (token, "
+        f"layer, choice) experts agree; {int(agree.sum())} of "
+        f"{len(agree)} requests agree at every layer; {routes.dropped()} "
+        f"choices dropped by capacity; on the kernel run's experts "
+        f"{_rel(got, replayed):.3g}, and one bf16 ulp added to one element "
+        f"after the first layer moves those {_rel(ulp, replayed):.3g}")
+    log(f"zoo {arch}: teacher-forced on the kernel run's inputs and "
+        f"experts, logits relative L2 {err:.3g} (tolerance "
+        f"{ZOO_LOGITS_TOL}; prefill {_rel(got[0], plain[0]):.3g}, decode "
+        f"{_rel(got[1], plain[1]):.3g}), max |diff| "
+        f"{float((got - plain).abs().max()):.3g} on logits of max "
+        f"{float(plain.abs().max()):.1f}; a layer's contribution at most "
+        f"{parts[worst]:.3g} (call {worst} of {len(parts)}); the last "
+        f"layer's kernel results dropped move its contribution "
+        f"{dropped:.3g} and the logits {moved:.3g}")
+    assert bool(torch.isfinite(got).all()), arch
+    assert max(err, parts[worst]) <= ZOO_LOGITS_TOL < dropped, (
+        arch, err, parts[worst], dropped)
 
 
 def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
     """``tests/test_arch_smoke.py``'s decode-vs-prefill check at full width,
     depth 2, fp32: prefill(t[:n]) then decode(t[n]) against
     prefill(t[:n+1]), rtol and atol 2e-3: the kernels' prefill path
-    against their decode path through whole models."""
+    against their decode path through whole models.  Capacity depends on
+    the tokens a row, so at the published 1.25 a prefill of n + 1 tokens
+    and a decode after n may drop different tokens, in the JAX package as
+    here: an MoE model runs at capacity factor experts / top-k, at which
+    an expert has a slot for every token of a row and nothing is dropped
+    (``configs.base.reduced``'s 4.0 drops choices at granite's full
+    width: its seeded router sends most tokens to a few experts)."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32")
+    if cfg.moe_enabled:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device).manual_seed(1))
     b, n = 4, 32
@@ -1749,35 +2029,46 @@ def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
     toks = torch.randint(0, cfg.vocab_size, (b, n + 1), device=device,
                          generator=gen)
     reset_counts()
-    full, _ = model.prefill(toks)
-    _, cache = model.prefill(toks[:, :n])
-    cache = expand_cache(model, cache, b, n + 1)
-    step, _ = model.decode_step(toks[:, n:], cache,
-                                torch.full((b,), n, dtype=torch.int32,
-                                           device=device))
+    with Routes() as routes:
+        full, _ = model.prefill(toks)
+        _, cache = model.prefill(toks[:, :n])
+        cache = expand_cache(model, cache, b, n + 1)
+        step, _ = model.decode_step(toks[:, n:], cache,
+                                    torch.full((b,), n, dtype=torch.int32,
+                                               device=device))
     torch.cuda.synchronize()
     launched = {k: v for k, v in counts().items() if v}
     err = float((step - full).abs().max())
+    dropped = (f"; choices dropped by capacity {routes.dropped()}"
+               if cfg.moe_enabled else "")
     log(f"zoo {arch} fp32 depth 2: decode after prefill of {n} against "
         f"prefill of {n + 1}: max |diff| {err:.3g} on logits of max "
-        f"{float(full.abs().max()):.1f}; launches {launched}")
+        f"{float(full.abs().max()):.1f}; launches {launched}{dropped}")
+    assert routes.dropped() == 0, routes.dropped()
     torch.testing.assert_close(step, full, rtol=2e-3, atol=2e-3)
     del model, cache
     torch.cuda.empty_cache()
 
 
-def zoo_phase(name_limit: str, device="cuda") -> dict:
-    """Phase 10; returns the kernels' launches in the two models' first
-    serves."""
-    zoo = {}
-    for arch in ("gemma-7b", "falcon-mamba-7b"):
-        stage(f"phase 10: {arch} served at full width")
-        for k, v in zoo_serve(arch, name_limit, device).items():
+#: the zoo's serves: (arch, depth; None serves every layer)
+ZOO = [("gemma-7b", None), ("falcon-mamba-7b", None),
+       ("granite-moe-3b-a800m", None), ("deepseek-v2-236b", 4)]
+
+
+def zoo_phase(name_limit: str, device="cuda") -> tuple[dict, dict]:
+    """Phase 10; returns the kernels' launches in the models' first
+    serves, summed and by arch."""
+    zoo, by_arch = {}, {}
+    for arch, depth in ZOO:
+        stage(f"phase 10: {arch} served at full width"
+              + ("" if depth is None else f", depth {depth}"))
+        by_arch[arch] = zoo_serve(arch, name_limit, device, depth)
+        for k, v in by_arch[arch].items():
             zoo[k] = zoo.get(k, 0) + v
     stage("phase 10: decode against prefill, fp32, depth 2")
-    for arch in ("gemma-7b", "falcon-mamba-7b"):
+    for arch, _ in ZOO:
         zoo_decode_matches_prefill(arch, device)
-    return zoo
+    return zoo, by_arch
 
 
 def main(argv) -> int:
@@ -1837,6 +2128,8 @@ def main(argv) -> int:
     k4 = check_flash_decode_proj(fw_dec, timer, gen)
     k5, attn = check_flash_attention(timer, gen)
     k5b = check_flash_attention_bf16(timer, gen)
+    k5m = check_flash_attention_mla(timer, gen)
+    k3m = check_flash_decode_mla(timer, gen)
     k6, scan = check_mamba_scan(timer, gen)
     clocks("after phase 2")
     del timer
@@ -1861,7 +2154,8 @@ def main(argv) -> int:
                k3["floor_ms"])
     del fw_weights
     torch.cuda.empty_cache()
-    zoo = zoo_phase(name_limit)
+    zoo, zoo_by_arch = zoo_phase(name_limit)
+    mla = zoo_by_arch["deepseek-v2-236b"]
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -1889,6 +2183,13 @@ def main(argv) -> int:
             ("flash_attention_bf16", "flash_attention",
              "src/repro/kernels/flash_attention.py:99", k5b,
              f"bf16 {ZOO_ATTN_CASE}", zoo["flash_attention"]),
+            ("flash_attention_mla", "flash_attention",
+             "src/repro/kernels/flash_attention.py:99", k5m,
+             f"bf16 {MLA_ATTN_CASE[:3]} causal, v {MLA_ATTN_CASE[3]} wide "
+             f"zero-padded", mla["flash_attention"]),
+            ("flash_decode_mla", "flash_decode",
+             "src/repro/kernels/flash_attention.py:256", k3m,
+             f"bf16 {MLA_DECODE_CASE[:5]}", mla["flash_decode"]),
             ("mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:61",
              k6, f"fp32 {SCAN_SHAPE}", op["mamba_scan"] + zoo["mamba_scan"])):
         b_ms, b_by = bound(stats["bytes"], stats["flops"], stats["rate"])

@@ -30,8 +30,12 @@ static parameter (shapes, strides, layouts, buffer contents) are batched:
 their gathers and products run as tensors over the whole batch (in
 chunks that bound memory), so large GEMMs do not pay a per-invocation
 dispatch.  The scatter-add that reduces them (BIRRD + the output buffer)
-is ``index_put_(accumulate=True)``, which sums in the same order on every
-run; ``index_add_`` on CUDA would not (atomics).
+is ``_ordered_add``: each output cell takes its contributions one by one,
+in invocation order, as the JAX machine's ``lax.scan`` of sequential
+scatter-adds does, whatever the thread count or the device.  Neither
+``index_put_(accumulate=True)`` (its CPU kernel splits the indices over
+threads past its grain) nor ``index_add_`` (atomics on CUDA) fixes that
+order.
 """
 
 from __future__ import annotations
@@ -53,12 +57,17 @@ _DYN_WIDTH = 9
 
 #: elements of the largest gathered operand one chunk of a batch holds
 _CHUNK_ELEMS = 1 << 22
+#: fold plans by (statics, dyn chunk, output width, device): a serve runs
+#: the same Programs every tick, so each batch's sort is done once; they
+#: are dropped together once they hold _PLAN_ELEMS contributions
+_PLANS: dict = {}
+_PLAN_ELEMS = 1 << 23
 
 
 def _invoke_batch(sta_buf, str_buf, o_acc, sta_first_rows, sta_cols,
-                  str_first_rows, str_cols, dyn, *, ah, aw, t_steps,
-                  vn_size, g_r, g_c, s_r, s_c, s_m, sta_red, sta_free,
-                  str_red, str_free) -> None:
+                  str_first_rows, str_cols, dyn, *, plan_key, ah, aw,
+                  t_steps, vn_size, g_r, g_c, s_r, s_c, s_m, sta_red,
+                  sta_free, str_red, str_free) -> None:
     """A batch of same-shaped (E.Mapping, E.Streaming) pairs: gather ->
     dot -> scatter-add into ``o_acc`` (in place), invocation by
     invocation in the order of ``dyn`` [N, 9].
@@ -122,10 +131,49 @@ def _invoke_batch(sta_buf, str_buf, o_acc, sta_first_rows, sta_cols,
     cg = c + c_off[:, None, None]
     flat = mg[:, :, None, :] * n_free + cg[:, None, :, :]    # [N, T, AH, AW]
     mask = valid_m[:, :, None, :] & valid_s[:, None, :, :]
-    psums = torch.where(mask, psums, 0.0)
-    flat = torch.where(mask, flat, 0)
-    o_acc.view(-1).index_put_((flat.reshape(-1),), psums.reshape(-1),
-                              accumulate=True)
+    plan = _PLANS.get(plan_key)
+    if plan is None:
+        plan = _fold_plan(flat.reshape(-1), mask.reshape(-1))
+        if sum(p[0].numel() for p in _PLANS.values()) > _PLAN_ELEMS:
+            _PLANS.clear()
+        _PLANS[plan_key] = plan
+    _ordered_add(o_acc.view(-1), psums.reshape(-1), plan)
+
+
+def _fold_plan(flat: torch.Tensor, mask: torch.Tensor) -> tuple:
+    """How ``_ordered_add`` folds the contributions ``flat`` (output cells,
+    in the reference's order) that ``mask`` keeps: (src, slot, cells,
+    depth).  A stable sort groups each cell's contributions in order; the
+    r-th contribution of the c-th cell goes to slot ``r * len(cells) + c``
+    of a [depth, cells] layout, depth being the most any cell takes."""
+    src = mask.nonzero()[:, 0]
+    idx, order = torch.sort(flat[src], stable=True)
+    cells, seg, counts = torch.unique_consecutive(
+        idx, return_inverse=True, return_counts=True)
+    rank = (torch.arange(idx.numel(), device=idx.device)
+            - (torch.cumsum(counts, 0) - counts)[seg])
+    depth = int(counts.max()) if counts.numel() else 0
+    return src[order], rank * cells.numel() + seg, cells, depth
+
+
+def _ordered_add(acc: torch.Tensor, vals: torch.Tensor, plan) -> None:
+    """``acc[flat[i]] += vals[i]`` for each kept i in turn, in place: a
+    cell's contributions are added one at a time, in the reference's
+    order, onto its value (the JAX machine's sequential scatter-add), so
+    the fp32 sum depends on no thread count, parallel split or atomics.
+    Row r of the [depth, cells] layout holds every cell's r-th
+    contribution, -0.0 (the exact additive identity) where a cell has
+    fewer; the fold is one vector add a row."""
+    src, slot, cells, depth = plan
+    if not depth:
+        return
+    rows = torch.full((depth, cells.numel()), -0.0, dtype=acc.dtype,
+                      device=acc.device)
+    rows.view(-1)[slot] = vals[src]
+    total = acc[cells]
+    for row in rows:
+        total += row
+    acc[cells] = total
 
 
 def _address_tables(lay: VNLayout, red: int, free: int, device):
@@ -340,20 +388,24 @@ class FeatherMachine:
          sta_free, str_lay, str_red, str_free, _, _) = self._pending_key
         sfr, scol = self._tables(sta_lay, sta_red, sta_free)
         tfr, tcol = self._tables(str_lay, str_red, str_free)
-        dyn = torch.as_tensor(np.asarray(self._pending, dtype=np.int64),
-                              device=self.device)
+        rows = np.asarray(self._pending, dtype=np.int64)
+        dyn = torch.as_tensor(rows, device=self.device)
         self._pending = []
         self._pending_key = None
         ah, aw = self.cfg.ah, self.cfg.aw
+        statics = dict(ah=ah, aw=aw, t_steps=t_steps, vn_size=vn_size,
+                       g_r=g_r, g_c=g_c, s_r=s_r, s_c=s_c, s_m=s_m,
+                       sta_red=sta_red, sta_free=sta_free, str_red=str_red,
+                       str_free=str_free)
         per = max(t_steps, ah) * aw * max(vn_size, ah)
         chunk = max(1, _CHUNK_ELEMS // per)
         for i in range(0, dyn.shape[0], chunk):
+            plan_key = (tuple(statics.values()), self.o_acc.shape[1],
+                        self.device, rows[i:i + chunk].tobytes())
             _invoke_batch(
                 self._bufs["stationary"], self._bufs["streaming"],
                 self.o_acc, sfr, scol, tfr, tcol, dyn[i:i + chunk],
-                ah=ah, aw=aw, t_steps=t_steps, vn_size=vn_size, g_r=g_r,
-                g_c=g_c, s_r=s_r, s_c=s_c, s_m=s_m, sta_red=sta_red,
-                sta_free=sta_free, str_red=str_red, str_free=str_free)
+                plan_key=plan_key, **statics)
 
     # -- Write: drain an output-tile slice, assemble, maybe commit -----------
     def _write(self, op: TraceOp):

@@ -110,14 +110,20 @@ def _pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, causal=True, bq=128, bkv=128):
-    """q, k, v: [B, S, H, D] -> [B, S, H, D], scale ``D**-0.5``.
+    """q, k: [B, S, H, D], v: [B, S, H, Dv] with Dv <= D -> [B, S, H, Dv],
+    scale ``D**-0.5``.
 
     Heads fold into the batch ([B*H, S, D]); query and key sequences are
     zero-padded to the block sizes (``bq``/``bkv``, cut to the largest
     power of two <= S as the JAX wrapper does) with the true key length
-    passed as ``kv_len``, so padded keys never contribute."""
+    passed as ``kv_len``, so padded keys never contribute.  A narrower v
+    (MLA's value heads) is zero-padded to D and the output cut back."""
     b, s, h, d = q.shape
-    sk = k.shape[1]
+    sk, dv = k.shape[1], v.shape[3]
+    if dv > d:
+        raise ValueError(f"value width {dv} exceeds the query width {d}")
+    if dv < d:
+        v = torch.cat([v, v.new_zeros((*v.shape[:3], d - dv))], -1)
     bq_, bkv_ = min(bq, ref._rnd(s)), min(bkv, ref._rnd(sk))
 
     def fold(x):
@@ -130,7 +136,7 @@ def flash_attention(q, k, v, *, causal=True, bq=128, bkv=128):
     else:
         o = _fa.flash_attention(qf.contiguous(), kf.contiguous(),
                                 vf.contiguous(), causal=causal, kv_len=sk)
-    return o[:, :s].reshape(b, h, s, d).transpose(1, 2)
+    return o[:, :s].reshape(b, h, s, d).transpose(1, 2)[..., :dv]
 
 
 def mamba_scan(da, dbx, c, h0):

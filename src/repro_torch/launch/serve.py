@@ -34,9 +34,11 @@ def parse(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace):
-    """The engine and its inputs: (engine, prompts, generate kwargs)."""
-    cfg = get_config(args.arch)
+def setup(args: argparse.Namespace, cfg=None):
+    """The engine and its inputs: (engine, prompts, generate kwargs).
+    ``cfg`` (a caller's change of ``args.arch``'s config, such as a cut
+    depth) replaces the registry's."""
+    cfg = cfg or get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg, layers=2, d_model=128, vocab=1024)
     model = build_model(cfg, device=args.device)

@@ -5,9 +5,10 @@ the weights bridge from the JAX package (counterpart of
 
 A model lives on one device, ``"cuda"`` by default (raising without a
 card); its parameters are drawn from the caller's ``torch.Generator``
-(or one seeded 0 on that device).  Families ported: ``dense``, ``vlm``
-and ``ssm``; ``moe`` (with MLA), ``hybrid`` and ``encdec``, and
-``loss`` with training, wait for ROADMAP A.9(a) and A.9(c).
+(or one seeded 0 on that device).  Families ported: ``dense``, ``moe``
+(with MLA and leading dense layers), ``vlm`` and ``ssm``; ``hybrid`` and
+``encdec``, and ``loss`` with training, wait for ROADMAP A.9(a) and
+A.9(c).
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, ssm_lm, transformer
 from repro_torch.models.common import DTYPES, Maker
+from repro_torch.models.mlp import GATED
 
 #: families whose modules are not ported yet, and the item porting them
-PENDING = {"moe": "ROADMAP A.9(a) (MoE and MLA)",
-           "hybrid": "ROADMAP A.9(a) (Mamba-2 and hybrid)",
+PENDING = {"hybrid": "ROADMAP A.9(a) (Mamba-2 and hybrid)",
            "encdec": "ROADMAP A.9(a) (encdec)"}
 
 
@@ -36,7 +37,7 @@ class Model(nn.Module):
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                       f"is not ported yet "
                                       f"({PENDING[cfg.family]})")
-        if cfg.family not in ("dense", "vlm", "ssm"):
+        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise ValueError(cfg.family)
         self.cfg = cfg
         device = common.resolve_device(device)
@@ -88,15 +89,24 @@ class Model(nn.Module):
 
         def spec(*shape, dtype=dt):
             return torch.empty(shape, dtype=dtype, device="meta")
-        L = cfg.num_layers
+        L = cfg.num_layers - cfg.first_k_dense
         if cfg.family == "ssm":
             di = cfg.ssm_d_inner
             return {"layers": {
                 "conv": spec(L, batch, cfg.ssm_d_conv - 1, di),
                 "ssm": spec(L, batch, di, cfg.ssm_state,
                             dtype=torch.float32)}}
-        kv = spec(L, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-        return {"layers": (kv, kv)}
+
+        def layers(n):
+            if cfg.mla:
+                return (spec(n, batch, max_len, cfg.kv_lora_rank),
+                        spec(n, batch, max_len, cfg.qk_rope_head_dim))
+            kv = spec(n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+            return (kv, kv)
+        out = {"layers": layers(L)}
+        if cfg.first_k_dense:
+            out["dense"] = layers(cfg.first_k_dense)
+        return out
 
     # ---------------- parameters ----------------
     def param_count(self) -> int:
@@ -105,9 +115,24 @@ class Model(nn.Module):
         twin = Model(self.cfg, device="meta")
         return sum(p.numel() for p in twin.parameters())
 
+    def active_param_count(self) -> int:
+        """Parameters a token uses: the experts it is not routed to are
+        left out (three matrices an expert for the gated kinds, two for
+        the plain ones)."""
+        total = self.param_count()
+        cfg = self.cfg
+        if not cfg.moe_enabled:
+            return total
+        per_expert = ((3 if cfg.mlp_act in GATED else 2) * cfg.d_model
+                      * cfg.moe_d_ff)
+        inactive = cfg.num_experts - cfg.experts_per_token
+        return total - (cfg.num_layers - cfg.first_k_dense) * inactive \
+            * per_expert
+
     def load_numpy(self, tree) -> "Model":
         """Copy in the JAX package's parameter pytree, as numpy arrays
-        (the ``layers`` axis unstacked, every layout kept as it is)."""
+        (the ``layers`` axis unstacked, ``dense_layers`` by index, every
+        layout kept as it is)."""
         common.load_numpy(self.net, tree)
         return self
 

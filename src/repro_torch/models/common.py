@@ -177,13 +177,16 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def _flatten_numpy(tree, prefix: str = "") -> dict:
-    """The JAX package's parameter pytree (nested dicts of arrays) as
-    ``{dotted name: array}``; the stacked ``layers`` axis of the scanned
-    layers is unstacked into ``layers.<i>.<name>``."""
+    """The JAX package's parameter pytree (nested dicts and lists of
+    arrays) as ``{dotted name: array}``; the stacked ``layers`` axis of
+    the scanned layers is unstacked into ``layers.<i>.<name>``, and a
+    list (``dense_layers``) is numbered as ``nn.ModuleList`` numbers."""
     flat = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
-        if isinstance(val, dict):
+        if isinstance(val, (list, tuple)):
+            flat.update(_flatten_numpy(dict(enumerate(val)), name + "."))
+        elif isinstance(val, dict):
             if key == "layers" and not prefix:
                 for sub, arr in _flatten_numpy(val).items():
                     for i in range(arr.shape[0]):

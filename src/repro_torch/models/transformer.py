@@ -1,13 +1,18 @@
-"""Decoder-only transformer LM: the ``dense`` and ``vlm`` families
-(counterpart of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM: the ``dense``, ``moe`` and ``vlm``
+families (counterpart of ``repro/models/transformer.py``).
 
 The layers are a ``ModuleList`` run one after another, where the JAX
 package scans a stacked pytree; the JAX package's ``remat`` and its
-``REPRO_*`` toggles change no result and have no counterpart.  The KV
-cache is ``{"layers": (K, V)}``, each ``[L, B, KVH, S, D]`` (head-major
-per layer, see ``models.attention``); decode updates it in place.
-
-MoE layers, MLA and leading dense layers wait for ROADMAP A.9(a).
+``REPRO_*`` toggles change no result and have no counterpart.  A layer's
+attention is GQA or MLA, its feed-forward an MLP or an MoE; the first
+``first_k_dense`` layers (``dense_layers``) take an MLP of ``dense_d_ff``
+whatever the rest take.  The decode cache is ``{"layers": (a, b)}``, plus
+``"dense"`` for the leading dense layers, each stacked over its layers:
+GQA's K and V ``[L, B, KVH, S, D]`` (head-major per layer, see
+``models.attention``), MLA's latent ``[L, B, S, kvr]`` and rope part
+``[L, B, S, dr]``; decode updates it in place.  The MoE's load-balancing
+loss is only for training, which the port does not have yet: serving
+drops it.
 """
 
 from __future__ import annotations
@@ -18,28 +23,29 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.common import Dense, Embed, Maker, RMSNorm
 from repro_torch.models.mlp import MLP
-
-#: the ROADMAP item that ports what this module refuses
-PENDING = "ROADMAP A.9(a)"
-
-
-def _refuse_pending(cfg) -> None:
-    for flag, what in (("moe_enabled", "MoE layers"), ("mla", "MLA"),
-                       ("first_k_dense", "leading dense layers")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet ({PENDING})")
+from repro_torch.models.moe import MoE
 
 
 class DecoderLayer(nn.Module):
-    """``_layer_params`` and ``_apply_layer`` for a dense layer."""
+    """``_layer_params`` and ``_apply_layer``: an MLP of ``dense_ff`` when
+    it is given (a leading dense layer), else an MoE or the config's
+    MLP."""
 
-    def __init__(self, mk: Maker, cfg):
+    def __init__(self, mk: Maker, cfg, dense_ff: int | None = None):
         super().__init__()
         self.ln_attn = RMSNorm(mk, cfg.d_model)
         self.ln_mlp = RMSNorm(mk, cfg.d_model)
-        self.attn = attn.GQA(mk, cfg)
-        self.mlp = MLP(mk, cfg.d_model, cfg.d_ff, cfg.mlp_act)
+        self.attn = attn.MLA(mk, cfg) if cfg.mla else attn.GQA(mk, cfg)
+        self.moe = self.mlp = None
+        if dense_ff is None and cfg.moe_enabled:
+            self.moe = MoE(mk, cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                           cfg.mlp_act, top_k=cfg.experts_per_token,
+                           capacity_factor=cfg.capacity_factor,
+                           num_shared=cfg.num_shared_experts,
+                           shared_d_ff=cfg.shared_d_ff)
+        else:
+            self.mlp = MLP(mk, cfg.d_model, dense_ff or cfg.d_ff,
+                           cfg.mlp_act)
 
     def forward(self, x, positions, mode: str, cache=None,
                 position_idx=None):
@@ -51,7 +57,23 @@ class DecoderLayer(nn.Module):
         else:
             a, new_cache = self.attn.self_attention(h, positions)
         x = x + a
-        return x + self.mlp(self.ln_mlp(x)), new_cache
+        h = self.ln_mlp(x)
+        f = self.mlp(h) if self.moe is None else self.moe(h)[0]
+        return x + f, new_cache
+
+
+def _run(layers, x, positions, mode, cache, position_idx):
+    """Run ``layers`` in turn; returns (x, their prefill cache stacked, or
+    ``cache`` itself at decode)."""
+    new = ([], [])
+    for i, layer in enumerate(layers):
+        c = None if cache is None else (cache[0][i], cache[1][i])
+        x, nc = layer(x, positions, mode, c, position_idx)
+        for acc, t in zip(new, nc):
+            acc.append(t)
+    if mode == "decode":
+        return x, cache
+    return x, tuple(torch.stack(t) for t in new)
 
 
 class Decoder(nn.Module):
@@ -59,12 +81,15 @@ class Decoder(nn.Module):
 
     def __init__(self, mk: Maker, cfg):
         super().__init__()
-        _refuse_pending(cfg)
         self.cfg = cfg
         self.embed = Embed(mk, cfg.vocab_size, cfg.d_model)
         self.ln_f = RMSNorm(mk, cfg.d_model)
-        self.layers = nn.ModuleList(DecoderLayer(mk, cfg)
-                                    for _ in range(cfg.num_layers))
+        self.dense_layers = nn.ModuleList(
+            DecoderLayer(mk, cfg, dense_ff=cfg.dense_d_ff)
+            for _ in range(cfg.first_k_dense))
+        self.layers = nn.ModuleList(
+            DecoderLayer(mk, cfg)
+            for _ in range(cfg.num_layers - cfg.first_k_dense))
         self.head = (None if cfg.tie_embeddings else
                      Dense(mk, cfg.d_model, cfg.vocab_size, scale=0.02))
 
@@ -82,16 +107,15 @@ class Decoder(nn.Module):
             positions = position_idx[:, None]
         else:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        new_k, new_v = [], []
-        for i, layer in enumerate(self.layers):
-            c = None if cache is None else (cache["layers"][0][i],
-                                            cache["layers"][1][i])
-            x, (k, v) = layer(x, positions, mode, c, position_idx)
-            new_k.append(k)
-            new_v.append(v)
+        new_cache = {}
+        if len(self.dense_layers):
+            x, new_cache["dense"] = _run(
+                self.dense_layers, x, positions, mode,
+                None if cache is None else cache["dense"], position_idx)
+        x, new_cache["layers"] = _run(
+            self.layers, x, positions, mode,
+            None if cache is None else cache["layers"], position_idx)
         x = self.ln_f(x)
         logits = (self.embed.unembed(x) if self.head is None
                   else self.head(x))
-        if mode == "decode":
-            return logits, cache
-        return logits, {"layers": (torch.stack(new_k), torch.stack(new_v))}
+        return logits, new_cache

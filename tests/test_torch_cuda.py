@@ -398,6 +398,91 @@ def test_flash_decode_kernel_shapes(cuda, qshape, skv, lengths, dv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                             (torch.bfloat16, 2e-2, 2e-1)])
+def test_flash_attention_kernel_mla_value_width(cuda, dtype, rtol, atol):
+    """MLA's prefill: q/k heads 192 wide, values 128 wide (zero-padded to
+    192 by the wrapper, the kernel's 192 instance), against the plain
+    version on the unpadded values."""
+    b, s, h, d, dv = 2, 70, 4, 192, 128
+    q, k = (_t(_np((b, s, h, d)), cuda).to(dtype) for _ in range(2))
+    v = _t(_np((b, s, h, dv)), cuda).to(dtype)
+    before = fa.attention_launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    fold = [x.transpose(1, 2).reshape(b * h, s, x.shape[-1])
+            for x in (q, k, v)]
+    want = ref.flash_attention_ref(*fold, causal=True)
+    want = want.reshape(b, h, s, dv).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert fa.attention_launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 0.1152),
+                                             (torch.bfloat16, 1e-2, 1e-2)])
+def test_flash_decode_kernel_mla_shape(cuda, dtype, rtol, atol):
+    """MLA's absorbed decode: 128 query rows (8 row groups) of d = 576
+    against values of dv = 512 (shared memory past 48 KB in both types),
+    scale 192**-0.5, ragged lengths; fp32 at the fp32 cases' atol of
+    2e-4 * d, bf16 within a bf16 place."""
+    b, sq, skv, d, dv = 3, 128, 49, 576, 512
+    q = _t(_np((b, sq, d)), cuda).to(dtype)
+    k = _t(_np((b, skv, d), 0.5), cuda).to(dtype)
+    v = _t(_np((b, skv, dv)), cuda).to(dtype)
+    lens = torch.tensor((47, 1, 33), dtype=torch.int32, device=cuda)
+    before = fa.launches
+    got = ops.flash_decode(q, k, v, lens, scale=192 ** -0.5)
+    want = ref.flash_decode_ref(q, k, v, lens, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, sq, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b"])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced MoE layer (fp32, the published capacity factor 1.25, so
+    tokens are dropped) on the card against the same layer on the CPU:
+    the routes (every array of ``moe.route``) equal, the output and aux
+    within 2e-4 + 2e-4 * |cpu|."""
+    from repro_torch.models import build_model, moe
+    cfg = _zoo_config(arch)
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    layers = [m.net.layers[0].moe for m in (cpu, card)]
+    for layer in layers:
+        layer.capacity_factor = 1.25
+    x = _t(_np((2, 128, cfg.d_model)))
+    routes = []
+    orig = moe.route
+
+    def record(*args):
+        out = orig(*args)
+        routes.append([t.cpu() for t in out])
+        return out
+    moe.route = record
+    try:
+        want, want_aux = layers[0](x)
+        got, got_aux = layers[1](x.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        moe.route = orig
+    assert not routes[0][3].all()                # tokens dropped
+    for a, c in zip(*routes):
+        assert torch.equal(a, c)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,l,d,n", SCAN_CASES + [
     (1, 37, 33, 16),                         # ragged L and channel block
     (2, 40, 24, 3),                          # N padded to 4
@@ -618,7 +703,8 @@ def _zoo_config(arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["gemma-7b", "qwen2-72b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "granite-moe-3b-a800m",
+                                  "deepseek-v2-236b"])
 def test_reduced_model_kernel_path_matches_its_cpu_path(cuda, arch):
     """A reduced model (fp32) on the card, its attention and scan in the
     kernels, against the same parameters on the CPU (the plain versions):
@@ -644,8 +730,9 @@ def test_reduced_model_kernel_path_matches_its_cpu_path(cuda, arch):
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
 
     def leaves(cache):
-        layers = cache["layers"]
-        return list(layers.values() if ssm_family else layers)
+        if ssm_family:
+            return list(cache["layers"].values())
+        return [t for key in sorted(cache) for t in cache[key]]
     for c, g in zip(leaves(cache_c), leaves(cache_g)):
         torch.testing.assert_close(g.cpu(), c, rtol=2e-4, atol=2e-4)
     cache_c, cache_g = (expand_cache(m, c, 2, 16) for m, c in

@@ -317,3 +317,32 @@ def test_sharded_path_waits_for_a7():
             np.testing.assert_allclose(got.numpy(), i @ w, rtol=RTOL,
                                        atol=atol)
     assert sorted(be._shard_subs) == [0, 1, 2]
+
+
+def test_reduction_order_is_fixed_at_any_thread_count():
+    """A K-heavy GEMM whose batches reduce ~2^16 contributions into 16
+    output cells, far past the size at which PyTorch's CPU
+    ``index_put_(accumulate=True)`` splits its indices over threads (and
+    adds with atomics): run 10 times at 8 threads, the output is
+    torch.equal every time and to a run at 1 thread, and within the
+    tolerance of the JAX interpreter and the oracle."""
+    mkn = (4, 65536, 4)
+    jprog, tprog = _programs(mkn, 4, 4)
+    i, w = _inputs(mkn, 11)
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        first = t_machine.run_program(tprog.cfg, tprog, {"I": i, "W": w},
+                                      device="cpu")["O"]
+        torch.set_num_threads(8)
+        for _ in range(10):
+            got = t_machine.run_program(tprog.cfg, tprog, {"I": i, "W": w},
+                                        device="cpu")["O"]
+            assert torch.equal(got, first)
+    finally:
+        torch.set_num_threads(threads)
+    want = np.asarray(j_machine.run_program(jprog.cfg, jprog,
+                                            {"I": i, "W": w})["O"])
+    atol = RTOL + RTOL * mkn[1]
+    np.testing.assert_allclose(first.numpy(), want, rtol=RTOL, atol=atol)
+    np.testing.assert_allclose(first.numpy(), i @ w, rtol=RTOL, atol=atol)

@@ -19,7 +19,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, ServeConfig, expand_cache
-from test_torch_models import ARCHS, GQA, pair
+from test_torch_models import ARCHS, GEMMA_MOE, GQA, pair
 
 B, P, STEPS = 3, 10, 8
 
@@ -34,7 +34,8 @@ def _prompts(cfg, seed=0):
     return prompts, prefix
 
 
-@pytest.mark.parametrize("arch,extra", [(a, ()) for a in ARCHS] + [GQA])
+@pytest.mark.parametrize("arch,extra",
+                         [(a, ()) for a in ARCHS] + [GQA, GEMMA_MOE])
 def test_greedy_tokens_equal_the_reference_engine(arch, extra):
     jm, params, model = pair(arch, extra)
     prompts, prefix = _prompts(model.cfg)
@@ -99,7 +100,8 @@ def test_engine_refuses_a_model_on_another_device():
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "internvl2-26b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "granite-moe-3b-a800m",
+                                  "deepseek-v2-236b"])
 def test_launch_serve_runs_on_the_cpu(arch, capsys):
     """The CLI sizes the cache to prompt + steps + 1, as the JAX
     package's does, so a vlm's prefix (8 reduced) must fit in steps + 1."""
