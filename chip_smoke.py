@@ -23,10 +23,13 @@ Phases (any failure exits non-zero; no phase catches its own):
      flash_attention holds fp32 to 1e-4 of its plain version (three TF32
      products on the tensor cores, bound at 495/3 TFLOP/s), logs a bf16
      run at the same shape and times its bf16 route at the model zoo's
-     prefill shape, each beside SDPA in bf16.  The attention kernels'
-     library call is
-     SDPA on 4-D inputs, every route that takes them timed, the fastest
-     kept;
+     prefill shape, each beside SDPA in bf16, and full (non-causal) at
+     whisper-base's encoder shape; flash_decode at whisper-base's cross
+     attention (one query against 1500 frames); mamba_scan at falcon-mamba-7b's width
+     and at zamba2-1.2b's folded Mamba-2 scan (N = 64), the state
+     bit-equal to the plain version's in both.  The attention kernels'
+     library call is SDPA on 4-D inputs, every route that takes them
+     timed, the fastest kept;
   3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
      heads at 4096 tokens and ``ops.mamba_scan`` at falcon-mamba-7b's
      width, bit-equal to the kernels checked in phase 2;
@@ -62,28 +65,33 @@ Phases (any failure exits non-zero; no phase catches its own):
      fused_chain launch an array for each sharded fused segment); chaos on
      the card, flat and with an array going down; a serve resumed from a
      snapshot file.
- 10. the model zoo: gemma-7b (28 layers), falcon-mamba-7b (64) and
-     granite-moe-3b-a800m (32) at full width and depth, and
-     deepseek-v2-236b at full width cut to 4 layers (1 dense, 3 MoE: the
-     whole model is 472 GB in bf16), in bf16, built and served as
-     ``python -m repro_torch.launch.serve --arch ARCH`` does (batch 4,
-     prompt 32, 16 greedy steps, weights drawn on the card from a seeded
-     generator): exact launches (flash_attention once a layer at prefill,
-     flash_decode once a layer a decode step, mamba_scan once a layer a
-     step, no other kernel), tokens identical over two serves, the first
-     and the last layer's kernel calls held against their plain versions,
-     the logits of a prefill and a decode step held against the same
-     model on the plain versions (and shown to move past the tolerance
-     when the last layer's kernel results are dropped: seeded weights make
-     greedy tokens repeat, so tokens alone see no kernel fault; an MoE
-     model, which amplifies a ulp chaotically, over 16 requests with the
-     plain versions fed each layer's input and experts from the kernel
-     run, every layer's contribution held too, and the share of routes
-     the plain versions would choose alike on their own logged),
-     the decode step beside the bound of reading every weight once; then
-     every model at depth 2 in fp32 (the MoE models at capacity factor
-     experts / top-k, which drops nothing): decode after a prefill equal
-     to the longer prefill (rtol and atol 2e-3).  Phase 2 also times flash_attention and flash_decode at
+ 10. the model zoo: gemma-7b (28 layers), falcon-mamba-7b (64),
+     granite-moe-3b-a800m (32), zamba2-1.2b (38 Mamba-2 blocks, a shared
+     attention block after every 6) and whisper-base (6 + 6) at full
+     width and depth, and deepseek-v2-236b at full width cut to 4 layers
+     (1 dense, 3 MoE: the whole model is 472 GB in bf16), in bf16, built
+     and served as ``python -m repro_torch.launch.serve --arch ARCH``
+     does (batch 4, prompt 32, 16 greedy steps, weights drawn on the card
+     from a seeded generator, whisper's frames drawn after the prompts):
+     exact launches (``zoo_launches``: attention once a layer, the
+     hybrid's once an application, encdec's once an encoder layer and
+     twice a decoder layer; mamba_scan once a Mamba block a step; no
+     other kernel), tokens identical over two serves, each kernel's first
+     and last call of the prefill and of the last decode step held
+     against their plain versions, the logits of a prefill and a decode
+     step held against the same model on the plain versions (and shown
+     to move past the tolerance when each kernel's last call is dropped:
+     seeded weights make greedy tokens repeat, so tokens alone see no
+     kernel fault; an MoE model, which amplifies a ulp chaotically, over
+     16 requests with the plain versions fed each layer's input and
+     experts from the kernel run, every layer's contribution held too,
+     and the share of routes the plain versions would choose alike on
+     their own logged), the decode step beside the bound of the bytes it
+     must move (``decode_step_bytes``); then every model at depth 2
+     (zamba2 at 7: one application and a tail block) in fp32 (the MoE
+     models at capacity factor experts / top-k, which drops nothing):
+     decode after a prefill equal to the longer prefill (rtol and atol
+     2e-3).  Phase 2 also times flash_attention and flash_decode at
      MLA's shapes (rows flash_attention_mla and flash_decode_mla).
 
 Phase 10 runs last, after phase 9's weights are freed, and frees what it
@@ -248,16 +256,17 @@ def row_stats(t: dict, plain: dict, lib: dict | None, nbytes: float,
             "bytes": nbytes, "flops": flops, "err": err, "rate": rate}
 
 
-def check(name: str, got, want, k: int) -> float:
-    """Hold ``got`` against ``want`` at rtol 2e-4, atol 2e-4*k.  The
-    inputs are drawn so that the plain result's RMS is at least 10x the
-    atol: a kernel that returned zeros, or dropped part of K, would fail."""
+def check(name: str, got, want, k: int, rtol: float = RTOL) -> float:
+    """Hold ``got`` against ``want`` at rtol 2e-4 (or ``rtol``), atol
+    2e-4*k.  The inputs are drawn so that the plain result's RMS is at
+    least 10x the atol: a kernel that returned zeros, or dropped part of
+    K, would fail."""
     atol = RTOL * k
     rms = float(want.pow(2).mean().sqrt())
     assert atol < 0.1 * rms, (f"{name}: atol {atol} is not small against "
                               f"the result (RMS {rms})")
     err = (got - want).abs()
-    tol = atol + RTOL * want.abs()
+    tol = atol + rtol * want.abs()
     if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max |err| {float(err.max())}, "
@@ -890,16 +899,71 @@ def check_flash_decode_mla(timer, gen) -> dict:
     return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
 
 
-def check_mamba_scan(timer, gen) -> tuple[dict, tuple]:
-    b, seq, d, n = SCAN_SHAPE
-    da = 0.7 + 0.299 * torch.rand(b, seq, d, n, device="cuda",
-                                  generator=gen)
+#: whisper-base's cross attention at a decode step: a request's 8 heads
+#: of 64, each one query against its 1500 encoder frames (lengths 1500),
+#: scale 64**-0.5: q [32, 1, 64], K and V [32, 1500, 64]
+CROSS_DECODE_CASE = (32, 1, 1500, 64)
+
+
+def check_flash_decode_cross(timer, gen) -> dict:
+    """The bf16 route at ``CROSS_DECODE_CASE`` against its plain version,
+    timed beside SDPA in bf16 and its bound: the kernels JSON row
+    ``flash_decode_cross``."""
+    b, sq, skv, d = CROSS_DECODE_CASE
+    scale = d ** -0.5
+    # scores of std 4 over 1500 keys: a peaked softmax, output RMS ~0.5
+    q = (torch.randn(b, sq, d, device="cuda", generator=gen) / scale
+         ).to(torch.bfloat16)
+    k = (torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
+         ).to(torch.bfloat16)
+    v = torch.randn(b, skv, d, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    lens = torch.full((b,), skv, dtype=torch.int32, device="cuda")
+    got = fa.flash_decode(q, k, v, lens, scale=scale)
+    want = ref.flash_decode_ref(q, k, v, lens, scale=scale)
+    name = f"flash_decode bf16 cross {CROSS_DECODE_CASE}"
+    # one bf16 ulp more than check()'s tolerance, as flash_attention_enc
+    err = check(name, got.float(), want.float(), d, RTOL + 2 ** -7)
+    ms_ = timer(lambda: fa.flash_decode(q, k, v, lens, scale=scale))
+    plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens, scale=scale))
+    lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
+                       k[:, None], v[:, None], scale=scale)
+    nbytes = 2.0 * (2 * b * sq * d + 2 * b * skv * d) + 4 * b
+    flops = 4.0 * b * sq * skv * d
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+    log(f"K3 {name}: lengths {skv} | max_err {err:.3g} | ms {spread(ms_)} "
+        f"plain {plain['ms']:.4f} sdpa {lib['ms']:.4f} ({lib['route']}) "
+        f"bound {b_ms:.6f} ({b_by})")
+    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
+
+
+#: zamba2-1.2b's Mamba-2 scan as ``models.ssm.Mamba2`` calls it for one
+#: request of 4096 tokens: its 64 heads folded into the batch, P 64, N 64
+SCAN_MAMBA2_SHAPE = (64, 4096, 64, 64)
+
+
+def check_mamba_scan(timer, gen, shape=SCAN_SHAPE,
+                     per_head=False) -> tuple[dict, tuple]:
+    """The kernel at ``shape`` against its plain version: y within
+    ``check()``'s tolerance, the state bit-equal; timed beside its bound
+    (no library call computes the scan).  ``per_head``: da is one scalar
+    a (batch row, step), expanded over (D, N) and made dense, as Mamba-2
+    gives it."""
+    b, seq, d, n = shape
+    if per_head:
+        da = (0.7 + 0.299 * torch.rand(b, seq, device="cuda", generator=gen)
+              )[..., None, None].expand(b, seq, d, n).contiguous()
+    else:
+        da = 0.7 + 0.299 * torch.rand(b, seq, d, n, device="cuda",
+                                      generator=gen)
     dbx = torch.randn(b, seq, d, n, device="cuda", generator=gen) * 0.1
     c = torch.randn(b, seq, n, device="cuda", generator=gen)
     h0 = torch.randn(b, d, n, device="cuda", generator=gen) * 0.1
     y, h = ms.mamba_scan(da, dbx, c, h0)
     y_ref, h_ref = ref.mamba_scan_ref(da, dbx, c, h0)
-    err = check("mamba_scan", y, y_ref, n)
+    name = f"mamba_scan {shape}" + (" (Mamba-2, da per head)" if per_head
+                                    else "")
+    err = check(name, y, y_ref, n)
     # the state is a rounded multiply then a rounded add in both versions
     assert torch.equal(h, h_ref), float((h - h_ref).abs().max())
     ms_ = timer(lambda: ms.mamba_scan(da, dbx, c, h0))
@@ -907,11 +971,53 @@ def check_mamba_scan(timer, gen) -> tuple[dict, tuple]:
     nbytes = 4.0 * (2 * b * seq * d * n + b * seq * n + 2 * b * d * n
                     + b * seq * d)
     flops = 4.0 * b * seq * d * n
-    log(f"K6 mamba_scan: B {b} L {seq} D {d} N {n} | max_err {err:.3g}, "
+    log(f"K6 {name}: B {b} L {seq} D {d} N {n} | max_err {err:.3g}, "
         f"h_last bit-equal | ms {spread(ms_)} plain {plain['ms']:.4f} "
         f"library none | bound {bound(nbytes, flops)[0]:.4f}")
     return (row_stats(ms_, plain, None, nbytes, flops, err),
             (da, dbx, c, h0, y, h))
+
+
+#: whisper-base's encoder attention in the zoo's serve: [B * H, frames,
+#: D] = [4 * 8, 1500, 64], full, bf16; ``ops.flash_attention`` pads the
+#: frames to 1536 (blocks of 128) and masks keys past 1500
+ENC_ATTN_CASE = (32, 1500, 64)
+
+
+def check_flash_attention_enc(timer, gen) -> dict:
+    """The bf16 route, full (non-causal), at ``ENC_ATTN_CASE`` as the path
+    launches it (padded, ``kv_len`` 1500) against its plain version, timed
+    beside SDPA in bf16 on the unpadded inputs (every route, the fastest
+    kept) and its bound at the true length: the kernels JSON row
+    ``flash_attention_enc``."""
+    bh, s, d = ENC_ATTN_CASE
+    # q at 4x: scores of std 4 over 1500 keys, an output RMS of ~0.5
+    q = (torch.randn(bh, s, d, device="cuda", generator=gen) * 4.0
+         ).to(torch.bfloat16)
+    k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
+                        ).to(torch.bfloat16) for _ in range(2))
+    qp, kp, vp = (ops._pad_rows(x, 128) for x in (q, k, v))
+    got = fa.flash_attention(qp, kp, vp, causal=False, kv_len=s)[:, :s]
+    want = ref.flash_attention_ref(qp, kp, vp, causal=False,
+                                   kv_len=s)[:, :s]
+    name = f"flash_attention bf16 full {ENC_ATTN_CASE}"
+    # both round their fp32 sums to bf16, where another sum order can
+    # flip a rounding: one bf16 ulp (at most 2^-7 of |want|) more than
+    # check()'s tolerance, which at d 64 is below an ulp past |2|
+    err = check(name, got.float(), want.float(), d, RTOL + 2 ** -7)
+    ms_ = timer(lambda: fa.flash_attention(qp, kp, vp, causal=False,
+                                           kv_len=s))
+    plain = timer(lambda: ref.flash_attention_ref(qp, kp, vp, causal=False,
+                                                  kv_len=s))
+    lib = sdpa_library(timer, name, want, lambda o: o[0], q[None], k[None],
+                       v[None])
+    nbytes = 4.0 * bh * s * d * q.element_size()
+    flops = 4.0 * bh * d * s * s
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+    log(f"K5 {name}: padded to {qp.shape[1]}, kv_len {s} | max_err "
+        f"{err:.3g} | ms {spread(ms_)} plain {plain['ms']:.4f} sdpa "
+        f"{lib['ms']:.4f} ({lib['route']}) bound {b_ms:.6f} ({b_by})")
+    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
 
 
 # ---------------------------------------------------------------------------
@@ -1717,16 +1823,90 @@ def zoo_kernel_checks(arch: str, caps: list) -> None:
                 bool(torch.isfinite(o).all()) for o in outs), (arch, i, errs)
 
 
+#: each kernel wrapper's module, where ``Swap`` and ``Capture`` install
+KERNEL_MODULES = {"flash_attention": fa, "flash_decode": fa,
+                  "mamba_scan": ms}
+
+
+def zoo_launches(cfg) -> tuple[dict, dict]:
+    """The kernels a model of the zoo launches: (at prefill, a decode
+    step).  Attention once a layer (the hybrid's once an application of
+    its shared block; encdec's once an encoder layer and twice a decoder
+    layer, self and cross), the scan once a Mamba block."""
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"mamba_scan": n}, {"mamba_scan": n}
+    if cfg.family == "hybrid":
+        apps = n // cfg.attn_every
+        return ({"mamba_scan": n, "flash_attention": apps},
+                {"mamba_scan": n, "flash_decode": apps})
+    if cfg.family == "encdec":
+        return ({"flash_attention": cfg.encoder_layers + 2 * n},
+                {"flash_decode": 2 * n})
+    return {"flash_attention": n}, {"flash_decode": n}
+
+
+def zoo_plan(cfg, steps: int) -> tuple[dict, dict]:
+    """A serve of ``steps`` tokens (a prefill and ``steps - 1`` decode
+    steps): every kernel's exact launches, and the calls to capture, each
+    kernel's first and last of the prefill and of the last decode step."""
+    pre, step = zoo_launches(cfg)
+    expect = {k: pre.get(k, 0) + step.get(k, 0) * (steps - 1)
+              for k in counts()}
+    keep = {}
+    for k, n in pre.items():
+        keep[k] = (0, n - 1)
+    for k, n in step.items():
+        first = pre.get(k, 0) + n * (steps - 2)
+        keep[k] = keep.get(k, ()) + (first, first + n - 1)
+    return expect, keep
+
+
+def _named_leaves(tree, key=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _named_leaves(v, key)
+    else:
+        yield key, tree
+
+
+def decode_step_bytes(model, batch: int, attended: int) -> tuple[int, int]:
+    """The bytes a decode step must move: (weights, cache).  Every weight
+    the step uses read once (the hybrid's shared block once an
+    application: its 100 MB does not stay in the 50 MB L2; an encdec
+    model's encoder not at all), the decode cache read at ``attended``
+    positions (encdec's cross K/V at all its frames), the recurrent
+    states (``conv``, ``ssm``) read and written."""
+    net = model.net
+
+    def size(params):
+        return sum(p.numel() * p.element_size() for p in params)
+    weights = size(p for name, p in net.named_parameters()
+                   if not name.startswith("enc_"))
+    if model.cfg.family == "hybrid":
+        weights += (len(net.app_norms) - 1) * size(net.shared.parameters())
+    cache = sum(t.numel() * t.element_size() * (2 if key in ("conv", "ssm")
+                                                else 1)
+                for key, t in _named_leaves(model.cache_spec(batch,
+                                                             attended)))
+    return weights, cache
+
+
 def zoo_serve(arch: str, name_limit: str, device="cuda",
               depth: int | None = None) -> dict:
     """``arch`` at full width and depth (or cut to ``depth`` layers) in
     its published dtype, built and served as ``python -m
     repro_torch.launch.serve --arch ARCH`` builds and serves it (the
-    CLI's defaults): launches exact, two serves' tokens identical, the
-    first and the last layer's kernel calls held against their plain
-    versions (in the second serve), the logits held against the plain
-    versions' (``zoo_logits_gate``), the decode step beside the bound of
-    reading every weight once.  Returns the first serve's launches."""
+    CLI's defaults): launches exact (``zoo_plan``), two serves' tokens
+    identical, each kernel's first and last call of the prefill and of
+    the last decode step held against their plain versions (in the
+    second serve), the logits held against the plain versions'
+    (``zoo_logits_gate``), the decode step beside the bound of the bytes
+    it must move (``decode_step_bytes``).  Returns the first serve's
+    launches."""
     args = launch_serve.parse(["--arch", arch, *ZOO_ARGV, "--device",
                                str(device)])
     full = get_config(arch)
@@ -1746,22 +1926,9 @@ def zoo_serve(arch: str, name_limit: str, device="cuda",
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
         f"parameters, {wbytes / 1e9:.2f} GB {cfg.dtype}, drawn on the card "
         f"in {time.perf_counter() - t0:.1f} s")
-    layers, steps = cfg.num_layers, args.steps
-    # the calls captured: the first and the last layer's, at prefill and
-    # at the last decode step
-    if cfg.family == "ssm":
-        expect = {"mamba_scan": layers * steps}
-        keep = {"mamba_scan": (0, layers - 1, layers * (steps - 1),
-                               layers * steps - 1)}
-        mods = {"mamba_scan": ms}
-    else:
-        expect = {"flash_attention": layers,
-                  "flash_decode": layers * (steps - 1)}
-        keep = {"flash_attention": (0, layers - 1),
-                "flash_decode": (layers * (steps - 2),
-                                 layers * (steps - 1) - 1)}
-        mods = {"flash_attention": fa, "flash_decode": fa}
-    expect = {k: expect.get(k, 0) for k in counts()}
+    steps = args.steps
+    expect, keep = zoo_plan(cfg, steps)
+    mods = {n: KERNEL_MODULES[n] for n in keep}
 
     reset_counts()
     tokens = engine.generate(prompts, steps, **kw)
@@ -1785,14 +1952,18 @@ def zoo_serve(arch: str, name_limit: str, device="cuda",
     zoo_logits_gate(arch, model, prompts, kw, mods)
 
     step_ms = st["decode_s"] / st["decode_steps"] * 1e3
-    bound_ms = wbytes / PEAK_BYTES * 1e3
+    # the mean decode step attends to prompt + steps / 2 keys
+    weights, cache = decode_step_bytes(model, args.batch,
+                                       args.prompt_len + steps // 2)
+    bound_ms = (weights + cache) / PEAK_BYTES * 1e3
     cli_tok_s = args.batch * steps / (st["prefill_s"] + st["decode_s"])
     rep_ms = engine.stats["decode_s"] / engine.stats["decode_steps"] * 1e3
     log(f"zoo {arch}: decode {step_ms:.3f} ms a step over "
         f"{st['decode_steps']} steps ({args.batch / step_ms * 1e3:.1f} "
         f"tok/s decoding, {cli_tok_s:.1f} tok/s with prefill, the CLI's "
-        f"measure) against the bound {bound_ms:.3f} ms ({wbytes / 1e9:.2f} "
-        f"GB of weights read once a step at {PEAK_BYTES / 1e12:.2f} TB/s); "
+        f"measure) against the bound {bound_ms:.3f} ms ({weights / 1e9:.3f} "
+        f"GB of weights and {cache / 1e9:.3f} GB of cache and states a step "
+        f"at {PEAK_BYTES / 1e12:.2f} TB/s); "
         f"prefill of {args.batch} x {args.prompt_len} tokens "
         f"{st['prefill_s'] * 1e3:.1f} ms; the repeat serve (capturing "
         f"calls) {rep_ms:.3f} ms a step "
@@ -1896,7 +2067,7 @@ def zoo_logits_gate(arch: str, model, prompts, kw, mods) -> None:
     (``zoo_moe_gate``)."""
     if model.cfg.moe_enabled:
         return zoo_moe_gate(arch, model, prompts, kw, mods)
-    layers = model.cfg.num_layers
+    pre, step = zoo_launches(model.cfg)
     prompts = torch.as_tensor(prompts, device=model.device)
 
     def swapped(zero):
@@ -1907,10 +2078,10 @@ def zoo_logits_gate(arch: str, model, prompts, kw, mods) -> None:
 
     got = zoo_logits(model, prompts, kw)
     plain = swapped(lambda n: ())
-    # the last layer's call at prefill and at the decode step: the scan
-    # runs once a layer in both; attention once a layer in each kernel
-    fault = swapped(lambda n: (layers - 1, 2 * layers - 1)
-                    if n == "mamba_scan" else (layers - 1,))
+    # each kernel's last call at prefill and at the decode step (a
+    # wrapper's calls are counted over both)
+    fault = swapped(lambda n: tuple(c - 1 for c in (
+        pre.get(n, 0), pre.get(n, 0) + step.get(n, 0)) if c))
     err, moved = _rel(got, plain), _rel(fault, plain)
     log(f"zoo {arch}: logits on the kernels against the plain versions: "
         f"relative L2 {err:.3g} (tolerance {ZOO_LOGITS_TOL}; prefill "
@@ -2006,18 +2177,26 @@ def zoo_moe_gate(arch: str, model, prompts, kw, mods) -> None:
         arch, err, parts[worst], dropped)
 
 
+#: the depth of the decode-vs-prefill check where 2 is not enough:
+#: zamba2's shared block runs after every 6 blocks, so 7 runs one
+#: application and a tail block
+DECODE_CHECK_DEPTH = {"zamba2-1.2b": 7}
+
+
 def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
     """``tests/test_arch_smoke.py``'s decode-vs-prefill check at full width,
-    depth 2, fp32: prefill(t[:n]) then decode(t[n]) against
-    prefill(t[:n+1]), rtol and atol 2e-3: the kernels' prefill path
-    against their decode path through whole models.  Capacity depends on
+    depth 2 (or ``DECODE_CHECK_DEPTH``), fp32: prefill(t[:n]) then
+    decode(t[n]) against prefill(t[:n+1]), rtol and atol 2e-3: the
+    kernels' prefill path against their decode path through whole models
+    (an encdec model's frames drawn at the CLI's scale).  Capacity depends on
     the tokens a row, so at the published 1.25 a prefill of n + 1 tokens
     and a decode after n may drop different tokens, in the JAX package as
     here: an MoE model runs at capacity factor experts / top-k, at which
     an expert has a slot for every token of a row and nothing is dropped
     (``configs.base.reduced``'s 4.0 drops choices at granite's full
     width: its seeded router sends most tokens to a few experts)."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+    depth = DECODE_CHECK_DEPTH.get(arch, 2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth,
                               dtype="float32")
     if cfg.moe_enabled:
         cfg = dataclasses.replace(
@@ -2028,10 +2207,14 @@ def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
     gen = torch.Generator(device).manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (b, n + 1), device=device,
                          generator=gen)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.randn(b, cfg.frontend_len, cfg.d_model,
+                                   device=device, generator=gen) * 0.02
     reset_counts()
     with Routes() as routes:
-        full, _ = model.prefill(toks)
-        _, cache = model.prefill(toks[:, :n])
+        full, _ = model.prefill(toks, **kw)
+        _, cache = model.prefill(toks[:, :n], **kw)
         cache = expand_cache(model, cache, b, n + 1)
         step, _ = model.decode_step(toks[:, n:], cache,
                                     torch.full((b,), n, dtype=torch.int32,
@@ -2041,8 +2224,8 @@ def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
     err = float((step - full).abs().max())
     dropped = (f"; choices dropped by capacity {routes.dropped()}"
                if cfg.moe_enabled else "")
-    log(f"zoo {arch} fp32 depth 2: decode after prefill of {n} against "
-        f"prefill of {n + 1}: max |diff| {err:.3g} on logits of max "
+    log(f"zoo {arch} fp32 depth {depth}: decode after prefill of {n} "
+        f"against prefill of {n + 1}: max |diff| {err:.3g} on logits of max "
         f"{float(full.abs().max()):.1f}; launches {launched}{dropped}")
     assert routes.dropped() == 0, routes.dropped()
     torch.testing.assert_close(step, full, rtol=2e-3, atol=2e-3)
@@ -2052,7 +2235,8 @@ def zoo_decode_matches_prefill(arch: str, device="cuda") -> None:
 
 #: the zoo's serves: (arch, depth; None serves every layer)
 ZOO = [("gemma-7b", None), ("falcon-mamba-7b", None),
-       ("granite-moe-3b-a800m", None), ("deepseek-v2-236b", 4)]
+       ("granite-moe-3b-a800m", None), ("deepseek-v2-236b", 4),
+       ("zamba2-1.2b", None), ("whisper-base", None)]
 
 
 def zoo_phase(name_limit: str, device="cuda") -> tuple[dict, dict]:
@@ -2065,7 +2249,7 @@ def zoo_phase(name_limit: str, device="cuda") -> tuple[dict, dict]:
         by_arch[arch] = zoo_serve(arch, name_limit, device, depth)
         for k, v in by_arch[arch].items():
             zoo[k] = zoo.get(k, 0) + v
-    stage("phase 10: decode against prefill, fp32, depth 2")
+    stage("phase 10: decode against prefill, fp32, depth 2 (zamba2 7)")
     for arch, _ in ZOO:
         zoo_decode_matches_prefill(arch, device)
     return zoo, by_arch
@@ -2130,7 +2314,11 @@ def main(argv) -> int:
     k5b = check_flash_attention_bf16(timer, gen)
     k5m = check_flash_attention_mla(timer, gen)
     k3m = check_flash_decode_mla(timer, gen)
+    k5e = check_flash_attention_enc(timer, gen)
+    k3c = check_flash_decode_cross(timer, gen)
     k6, scan = check_mamba_scan(timer, gen)
+    k6m = check_mamba_scan(timer, gen, SCAN_MAMBA2_SHAPE, per_head=True)[0]
+    torch.cuda.empty_cache()
     clocks("after phase 2")
     del timer
     torch.cuda.empty_cache()
@@ -2156,6 +2344,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     zoo, zoo_by_arch = zoo_phase(name_limit)
     mla = zoo_by_arch["deepseek-v2-236b"]
+    falcon, zamba = zoo_by_arch["falcon-mamba-7b"], zoo_by_arch["zamba2-1.2b"]
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -2190,8 +2379,21 @@ def main(argv) -> int:
             ("flash_decode_mla", "flash_decode",
              "src/repro/kernels/flash_attention.py:256", k3m,
              f"bf16 {MLA_DECODE_CASE[:5]}", mla["flash_decode"]),
+            ("flash_attention_enc", "flash_attention",
+             "src/repro/kernels/flash_attention.py:99", k5e,
+             f"bf16 {ENC_ATTN_CASE} full, padded to 1536",
+             zoo_by_arch["whisper-base"]["flash_attention"]),
+            ("flash_decode_cross", "flash_decode",
+             "src/repro/kernels/flash_attention.py:256", k3c,
+             f"bf16 {CROSS_DECODE_CASE}",
+             zoo_by_arch["whisper-base"]["flash_decode"]),
             ("mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:61",
-             k6, f"fp32 {SCAN_SHAPE}", op["mamba_scan"] + zoo["mamba_scan"])):
+             k6, f"fp32 {SCAN_SHAPE}",
+             op["mamba_scan"] + falcon["mamba_scan"]),
+            ("mamba_scan_mamba2", "mamba_scan",
+             "src/repro/kernels/mamba_scan.py:61", k6m,
+             f"fp32 {SCAN_MAMBA2_SHAPE}, da a head's scalar",
+             zamba["mamba_scan"])):
         b_ms, b_by = bound(stats["bytes"], stats["flops"], stats["rate"])
         rows.append({"name": name, "route": "cuda",
                      "source": f"{src}{file}.cu", "replaces": replaces,

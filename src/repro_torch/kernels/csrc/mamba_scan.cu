@@ -1,4 +1,5 @@
-// Selective scan (the Mamba-1 inner recurrence) for Hopper, fp32.
+// Selective scan (the Mamba-1 and Mamba-2 inner recurrence) for Hopper,
+// fp32.
 //
 // Replaces: repro/kernels/mamba_scan.py, mamba_scan / _scan_kernel (the
 // Pallas TPU kernel on grid (batch, channel blocks, L chunks) that carries
@@ -8,23 +9,25 @@
 //   y_t = sum_n c_t[n] * h_t[:, n]
 //
 // da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N]; y [B, L, D] and
-// h_last [B, D, N].
+// h_last [B, D, N].  Mamba-2 calls it with its heads folded into B and
+// a head's channels as D (zamba2-1.2b: [B * 64, L, 64, 64]).
 //
 // What bounds it on an H100: bytes.  Each da and dbx element is read once
 // and used for 3 flops; at falcon-mamba-7b's d_inner 8192, N 16 and
 // L 4096 da and dbx are 2.15 GB each, ~1.3 ms at 3.35 TB/s.
 //
 // What the design does about it: the TPU kernel's L chunks exist only to
-// fit VMEM and have no counterpart.  Each thread holds one (b, d, n)
-// state element in a register for the whole of L, so the state never
-// touches memory; the N threads of one channel are adjacent lanes, so a
-// warp's loads of one time step are contiguous along (d, n) and y's sum
-// over n is a shuffle tree among those N lanes.  Each thread issues its
-// loads 8 time steps ahead of the recurrence, which keeps enough bytes
-// in flight to cover HBM latency with one block per 256 state elements.
-// The update is a rounded multiply, then a rounded add (no FMA), as the
-// plain version computes it, so the state is bit-equal to the plain
-// version's and only y's sum order differs.
+// fit VMEM and have no counterpart.  Each thread holds its state elements
+// in registers for the whole of L, so the state never touches memory.  A
+// channel's N elements lie on min(N, 32) adjacent lanes: at N <= 32 one
+// element a lane, at N = 64 two, n and n + 32, so that each load of a
+// warp is one contiguous run along (d, n).  y's sum over n is a lane's own
+// products added, then a shuffle tree among the channel's lanes.  Each
+// thread issues its loads 8 time steps ahead of the recurrence, which
+// keeps enough bytes in flight to cover HBM latency with one block per
+// 256 lanes.  The update is a rounded multiply, then a rounded add (no
+// FMA), as the plain version computes it, so the state is bit-equal to
+// the plain version's and only y's sum order differs.
 
 #include <cuda_runtime.h>
 
@@ -40,45 +43,63 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ c,
                       const float* __restrict__ h0, float* __restrict__ y,
                       float* __restrict__ h_last, int L, int D) {
-  constexpr int kChannels = kThreads / N;          // channels per block
+  constexpr int kLanes = N < 32 ? N : 32;          // lanes of one channel
+  constexpr int kPer = N / kLanes;                 // state elements a lane
+  constexpr int kChannels = kThreads / kLanes;     // channels per block
   const int b = blockIdx.y;
-  const int d = blockIdx.x * kChannels + threadIdx.x / N;
-  const int n = threadIdx.x % N;
+  const int d = blockIdx.x * kChannels + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
   const bool live = d < D;
   const size_t step = (size_t)D * N;               // one time step of da
-  const size_t base = (size_t)b * L * step + (size_t)d * N + n;
-  const float* cb = c + (size_t)b * L * N + n;
-  float h = live ? h0[((size_t)b * D + d) * N + n] : 0.0f;
+  const size_t base = (size_t)b * L * step + (size_t)d * N + lane;
+  const float* cb = c + (size_t)b * L * N + lane;
+  const size_t hbase = ((size_t)b * D + d) * N + lane;
+  float h[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    h[j] = live ? h0[hbase + j * kLanes] : 0.0f;
 
   for (int t0 = 0; t0 < L; t0 += kAhead) {
-    float a[kAhead], x[kAhead], cc[kAhead];
+    float a[kAhead][kPer], x[kAhead][kPer], cc[kAhead][kPer];
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
       const int t = t0 + u;
       const bool ok = live && t < L;
-      a[u] = ok ? __ldg(da + base + (size_t)t * step) : 0.0f;
-      x[u] = ok ? __ldg(dbx + base + (size_t)t * step) : 0.0f;
-      cc[u] = t < L ? __ldg(cb + (size_t)t * N) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const size_t at = base + (size_t)t * step + j * kLanes;
+        a[u][j] = ok ? __ldg(da + at) : 0.0f;
+        x[u][j] = ok ? __ldg(dbx + at) : 0.0f;
+        cc[u][j] = t < L ? __ldg(cb + (size_t)t * N + j * kLanes) : 0.0f;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
       if (t0 + u >= L) break;                      // uniform across the block
-      h = __fadd_rn(__fmul_rn(a[u], h), x[u]);
-      float yv = __fmul_rn(cc[u], h);
+      float yv = 0.0f;
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1)
+      for (int j = 0; j < kPer; ++j) {
+        h[j] = __fadd_rn(__fmul_rn(a[u][j], h[j]), x[u][j]);
+        const float p = __fmul_rn(cc[u][j], h[j]);
+        yv = j == 0 ? p : __fadd_rn(yv, p);
+      }
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
         yv += __shfl_xor_sync(0xffffffffu, yv, off);
-      if (n == 0 && live) y[((size_t)b * L + t0 + u) * D + d] = yv;
+      if (lane == 0 && live) y[((size_t)b * L + t0 + u) * D + d] = yv;
     }
   }
-  if (live) h_last[((size_t)b * D + d) * N + n] = h;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) h_last[hbase + j * kLanes] = h[j];
+  }
 }
 
 template <int N>
 cudaError_t launch(const float* da, const float* dbx, const float* c,
                    const float* h0, float* y, float* h_last, int B, int L,
                    int D, cudaStream_t stream) {
-  constexpr int kChannels = kThreads / N;
+  constexpr int kChannels = kThreads / (N < 32 ? N : 32);
   dim3 grid((D + kChannels - 1) / kChannels, B);
   mamba_scan_kernel<N>
       <<<grid, kThreads, 0, stream>>>(da, dbx, c, h0, y, h_last, L, D);
@@ -88,7 +109,7 @@ cudaError_t launch(const float* da, const float* dbx, const float* c,
 }  // namespace
 
 // da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N], y [B, L, D], h_last
-// [B, D, N], contiguous fp32 on the device; N a power of two up to 32.
+// [B, D, N], contiguous fp32 on the device; N a power of two up to 64.
 // Returns the launch's cudaError_t.
 extern "C" int mamba_scan_f32(const void* da, const void* dbx, const void* c,
                               const void* h0, void* y, void* h_last, int B,
@@ -109,6 +130,7 @@ extern "C" int mamba_scan_f32(const void* da, const void* dbx, const void* c,
     case 8: err = launch<8>(a, x, cf, h, yf, hl, B, L, D, s); break;
     case 16: err = launch<16>(a, x, cf, h, yf, hl, B, L, D, s); break;
     case 32: err = launch<32>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 64: err = launch<64>(a, x, cf, h, yf, hl, B, L, D, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

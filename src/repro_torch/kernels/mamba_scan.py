@@ -1,10 +1,10 @@
-"""Selective scan (the Mamba-1 inner recurrence) as a hand-written CUDA
-kernel.
+"""Selective scan (the Mamba-1 and Mamba-2 inner recurrence) as a
+hand-written CUDA kernel.
 
 ``mamba_scan(da, dbx, c, h0)`` launches ``csrc/mamba_scan.cu``:
 ``h_t = da_t * h_{t-1} + dbx_t`` over [B, D, N] and
-``y_t = sum_n c_t[n] * h_t[:, n]``, one thread per state element for the
-whole sequence (the TPU kernel it replaces is
+``y_t = sum_n c_t[n] * h_t[:, n]``, each state element held by one
+thread for the whole sequence (the TPU kernel it replaces is
 ``repro/kernels/mamba_scan.py``).  Returns (y [B, L, D], h_last [B, D, N]).
 """
 
@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the state widths the kernel takes (a channel's N lanes share a warp)
-STATE_WIDTHS = (1, 2, 4, 8, 16, 32)
+#: the state widths the kernel takes (a channel's elements lie on min(N,
+#: 32) lanes of one warp, two a lane at 64)
+STATE_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
 
 #: kernel launches since the count was last set to 0
 launches = 0

@@ -142,9 +142,10 @@ def flash_attention(q, k, v, *, causal=True, bq=128, bkv=128):
 def mamba_scan(da, dbx, c, h0):
     """The selective scan: da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N]
     -> (y [B, L, D], h_last [B, D, N]).  The TPU kernel's channel and L
-    blocks only tile VMEM, so neither version takes a block size; the
-    kernel's state width N is padded with zeros (an inert state) to the
-    next width it takes."""
+    blocks only tile VMEM, so neither version takes a block size.  The
+    kernel takes N a power of two up to 64 (``mamba_scan.STATE_WIDTHS``);
+    a width below 64 that is not one is padded with zeros (an inert
+    state) to the next, and one past 64 is refused."""
     if _on_cpu(da, dbx, c, h0):
         return ref.mamba_scan_ref(da, dbx, c, h0)
     n = da.shape[-1]

@@ -6,7 +6,9 @@
 
 Runs on the card (``--device cuda``, the default); ``--device cpu``
 takes the kernels' plain versions.  Parameters are drawn from a
-generator seeded 0 on the device.
+generator seeded 0 on the device; an encdec model's frames (and a vlm's
+prefix) are drawn after the prompts from the same numpy generator, fp32
+at scale 0.02, as the JAX package's launcher draws them.
 """
 
 from __future__ import annotations
@@ -50,8 +52,9 @@ def setup(args: argparse.Namespace, cfg=None):
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
     kwargs = {}
-    if cfg.family == "vlm":
-        kwargs["prefix_embeds"] = np.asarray(
+    if cfg.family in ("encdec", "vlm"):
+        name = "frames" if cfg.family == "encdec" else "prefix_embeds"
+        kwargs[name] = np.asarray(
             rng.standard_normal((args.batch, cfg.frontend_len, cfg.d_model)),
             np.float32) * 0.02
     return engine, prompts, kwargs

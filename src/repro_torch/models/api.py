@@ -5,10 +5,10 @@ the weights bridge from the JAX package (counterpart of
 
 A model lives on one device, ``"cuda"`` by default (raising without a
 card); its parameters are drawn from the caller's ``torch.Generator``
-(or one seeded 0 on that device).  Families ported: ``dense``, ``moe``
-(with MLA and leading dense layers), ``vlm`` and ``ssm``; ``hybrid`` and
-``encdec``, and ``loss`` with training, wait for ROADMAP A.9(a) and
-A.9(c).
+(or one seeded 0 on that device).  Every family of the JAX package is
+ported: ``dense``, ``moe`` (with MLA and leading dense layers), ``vlm``,
+``ssm`` (Mamba-1), ``hybrid`` (Mamba-2 with a shared attention block) and
+``encdec``; ``loss`` waits for training (ROADMAP A.9(c)).
 """
 
 from __future__ import annotations
@@ -17,13 +17,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, ssm_lm, transformer
+from repro_torch.models import common, encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import DTYPES, Maker
 from repro_torch.models.mlp import GATED
 
-#: families whose modules are not ported yet, and the item porting them
-PENDING = {"hybrid": "ROADMAP A.9(a) (Mamba-2 and hybrid)",
-           "encdec": "ROADMAP A.9(a) (encdec)"}
+#: each family's network
+NETS = {"dense": transformer.Decoder, "moe": transformer.Decoder,
+        "vlm": transformer.Decoder, "ssm": ssm_lm.SsmLM,
+        "hybrid": hybrid.Hybrid, "encdec": encdec.EncDec}
 
 
 class Model(nn.Module):
@@ -33,19 +34,14 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.family in PENDING:
-            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
-                                      f"is not ported yet "
-                                      f"({PENDING[cfg.family]})")
-        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        if cfg.family not in NETS:
             raise ValueError(cfg.family)
         self.cfg = cfg
         device = common.resolve_device(device)
         if generator is None and device.type != "meta":
             generator = torch.Generator(device).manual_seed(0)
         mk = Maker(device, DTYPES[cfg.dtype], generator)
-        self.net = (ssm_lm.SsmLM(mk, cfg) if cfg.family == "ssm"
-                    else transformer.Decoder(mk, cfg))
+        self.net = NETS[cfg.family](mk, cfg)
 
     @property
     def device(self) -> torch.device:
@@ -61,14 +57,19 @@ class Model(nn.Module):
         return torch.as_tensor(tokens, device=self.device).long()
 
     @torch.no_grad()
-    def prefill(self, tokens, prefix_embeds=None):
+    def prefill(self, tokens, prefix_embeds=None, frames=None):
         """tokens [B, S] -> (logits of the last position [B, V], cache);
-        ``prefix_embeds`` [B, P, d] (vlm) go before the tokens."""
+        ``prefix_embeds`` [B, P, d] (vlm) go before the tokens, and
+        ``frames`` [B, T, d] (encdec) are the encoder's input."""
+        kw = {}
         if prefix_embeds is not None:
-            prefix_embeds = torch.as_tensor(prefix_embeds,
-                                            device=self.device)
-        logits, cache = self.net(self._tokens(tokens), "prefill",
-                                 prefix_embeds=prefix_embeds)
+            kw["prefix_embeds"] = torch.as_tensor(prefix_embeds,
+                                                  device=self.device)
+        if frames is not None:
+            if self.cfg.family != "encdec":
+                raise ValueError(f"{self.cfg.name} takes no frames")
+            kw["frames"] = torch.as_tensor(frames, device=self.device)
+        logits, cache = self.net(self._tokens(tokens), "prefill", **kw)
         return logits[:, -1], cache
 
     @torch.no_grad()
@@ -90,19 +91,32 @@ class Model(nn.Module):
         def spec(*shape, dtype=dt):
             return torch.empty(shape, dtype=dtype, device="meta")
         L = cfg.num_layers - cfg.first_k_dense
+        di = cfg.ssm_d_inner
         if cfg.family == "ssm":
-            di = cfg.ssm_d_inner
             return {"layers": {
                 "conv": spec(L, batch, cfg.ssm_d_conv - 1, di),
                 "ssm": spec(L, batch, di, cfg.ssm_state,
                             dtype=torch.float32)}}
 
+        def kv(n, seq):
+            t = spec(n, batch, cfg.num_kv_heads, seq, cfg.head_dim)
+            return (t, t)
+        if cfg.family == "hybrid":
+            gn = cfg.ssm_groups * cfg.ssm_state
+            return {"mamba": {
+                "conv": spec(L, batch, cfg.ssm_d_conv - 1, di + 2 * gn),
+                "ssm": spec(L, batch, cfg.ssm_heads, di // cfg.ssm_heads,
+                            cfg.ssm_state, dtype=torch.float32)},
+                "kv": kv(L // cfg.attn_every, max_len)}
+        if cfg.family == "encdec":
+            return {"layers": {"self": kv(L, max_len),
+                               "cross": kv(L, cfg.frontend_len)}}
+
         def layers(n):
             if cfg.mla:
                 return (spec(n, batch, max_len, cfg.kv_lora_rank),
                         spec(n, batch, max_len, cfg.qk_rope_head_dim))
-            kv = spec(n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-            return (kv, kv)
+            return kv(n, max_len)
         out = {"layers": layers(L)}
         if cfg.first_k_dense:
             out["dense"] = layers(cfg.first_k_dense)
@@ -131,8 +145,8 @@ class Model(nn.Module):
 
     def load_numpy(self, tree) -> "Model":
         """Copy in the JAX package's parameter pytree, as numpy arrays
-        (the ``layers`` axis unstacked, ``dense_layers`` by index, every
-        layout kept as it is)."""
+        (the stacked axes of ``common.STACKED`` unstacked,
+        ``dense_layers`` by index, every layout kept as it is)."""
         common.load_numpy(self.net, tree)
         return self
 

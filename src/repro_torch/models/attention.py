@@ -3,12 +3,16 @@ hand-written kernels (counterpart of ``repro/models/attention.py``).
 
 The JAX package computes attention with ``jnp.einsum`` and
 ``jax.nn.softmax``: dense masked attention below 8192 keys and a
-blockwise online-softmax scan above, both causal at scale ``d**-0.5``.
-Here both are one ``kernels.ops.flash_attention`` call (on the card the
-``flash_attention`` kernel; on the CPU its plain version), with K/V
-repeated to the query heads for GQA (``repeat_interleave`` along the
-head axis is ``jnp.repeat``'s order, the reference's
-``q.reshape(b, s, kvh, g, d)`` grouping).
+blockwise online-softmax scan above, causal or full, at scale
+``d**-0.5``.  Here both are one ``kernels.ops.flash_attention`` call (on
+the card the ``flash_attention`` kernel; on the CPU its plain version),
+with K/V repeated to the query heads for GQA (``repeat_interleave`` along
+the head axis is ``jnp.repeat``'s order, the reference's
+``q.reshape(b, s, kvh, g, d)`` grouping).  ``causal=False`` and
+``use_rope=False`` are whisper's encoder (full, no rope) and decoder
+(causal, no rope); its cross attention (``cross_attention`` at prefill,
+``cross_decode`` at a decode step) attends to the encoder's K/V, all
+``frontend_len`` of them, in the same two kernels.
 
 Decode writes the new K/V into the cache by index (the JAX package's
 one-hot blend writes the same values) and runs one
@@ -45,6 +49,11 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, -1)).unflatten(-1, w.shape[1:])
 
 
+def _head_major(k: torch.Tensor, v: torch.Tensor):
+    """[b, s, kv, hd] K and V as [b, kv, s, hd], the cache's layout."""
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
 class GQA(nn.Module):
     """``gqa_params``: ``wq [d, h, hd]``, ``wk``/``wv [d, kv, hd]``,
     ``wo [h, hd, d]`` and, with ``qkv_bias``, ``bq``/``bk``/``bv``."""
@@ -65,14 +74,16 @@ class GQA(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
 
-    def _project_qkv(self, x, positions):
-        """q [b, s, h, hd] and k [b, s, kv, hd], both rotated, and v [b, s,
-        kv, hd]."""
+    def _project_qkv(self, x, positions, use_rope=True):
+        """q [b, s, h, hd] and k [b, s, kv, hd], both rotated unless
+        ``use_rope`` is False, and v [b, s, kv, hd]."""
         q, k, v = (_project(x, w) for w in (self.wq, self.wk, self.wv))
         if self.bq is not None:
             q = q + self.bq.to(x.dtype)
             k = k + self.bk.to(x.dtype)
             v = v + self.bv.to(x.dtype)
+        if not use_rope:
+            return q, k, v
         return (rope(q, positions, self.rope_theta),
                 rope(k, positions, self.rope_theta), v)
 
@@ -82,35 +93,63 @@ class GQA(nn.Module):
         wo = self.wo.to(ctx.dtype)
         return ctx.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
-    def self_attention(self, x, positions):
-        """``gqa_self_attention``, causal, the prefill path: returns (out,
-        (k, v)) with k and v head-major, [b, kv, s, hd], for the cache."""
-        q, k, v = self._project_qkv(x, positions)
+    def _attend(self, q, k, v, causal: bool):
+        """``attend``: q [b, s, h, hd] against k, v [b, s_kv, kv, hd] in
+        one ``ops.flash_attention`` (K/V repeated to the query heads)."""
         g = q.shape[2] // k.shape[2]
-        kr, vr = (k, v) if g == 1 else (k.repeat_interleave(g, 2),
-                                        v.repeat_interleave(g, 2))
-        ctx = ops.flash_attention(q, kr, vr, causal=True)
-        return self._out(ctx), (k.transpose(1, 2).contiguous(),
-                                v.transpose(1, 2).contiguous())
+        if g > 1:
+            k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+        return ops.flash_attention(q, k, v, causal=causal)
 
-    def decode_attention(self, x, cache_k, cache_v, position):
+    def self_attention(self, x, positions, causal=True, use_rope=True):
+        """``gqa_self_attention``, the prefill path: returns (out, (k, v))
+        with k and v head-major, [b, kv, s, hd], for the cache."""
+        q, k, v = self._project_qkv(x, positions, use_rope)
+        ctx = self._attend(q, k, v, causal)
+        return self._out(ctx), _head_major(k, v)
+
+    def cross_attention(self, x, enc_out):
+        """``_enc_kv`` and ``_cross_attend``: x [b, s, d] against the
+        encoder's output [b, t, d], full, no rope, no bias.  Returns (out,
+        (k, v)) with k and v head-major, [b, kv, t, hd], for the cache."""
+        q = _project(x, self.wq)
+        k, v = _project(enc_out, self.wk), _project(enc_out, self.wv)
+        return self._out(self._attend(q, k, v, False)), _head_major(k, v)
+
+    def cross_decode(self, x, cache_k, cache_v):
+        """One token (x [b, 1, d]) against the cached encoder K/V [b, kv,
+        t, hd], every key attended to."""
+        lengths = torch.full((x.shape[0],), cache_k.shape[2],
+                             dtype=torch.int32, device=x.device)
+        return self._decode_attend(_project(x, self.wq), cache_k, cache_v,
+                                  lengths)
+
+    def _decode_attend(self, q, cache_k, cache_v, lengths):
+        """One query token a request (q [b, 1, h, hd]) against a head-major
+        [b, kv, S, hd] cache, keys below ``lengths`` ([b]) attended to, at
+        scale ``hd**-0.5``, in one ``ops.flash_decode`` over [b * kv, g,
+        hd] query groups; returns the output projected, [b, 1, d]."""
+        b, kvh, s_max, hd = cache_k.shape
+        g = q.shape[2] // kvh
+        ctx = ops.flash_decode(q.reshape(b * kvh, g, hd),
+                               cache_k.view(b * kvh, s_max, hd),
+                               cache_v.view(b * kvh, s_max, hd),
+                               lengths.to(torch.int32).repeat_interleave(kvh),
+                               scale=hd ** -0.5)
+        return self._out(ctx.reshape(b, 1, -1, hd))
+
+    def decode_attention(self, x, cache_k, cache_v, position, use_rope=True):
         """``gqa_decode_attention``: one token (x [b, 1, d]) against a
         head-major [b, kv, S_max, hd] cache.  The new K/V is written at
         ``position`` ([b]) in place, and keys at or before it are
         attended to.  Returns (out, (cache_k, cache_v))."""
-        q, k_new, v_new = self._project_qkv(x, position[:, None])
-        b, kvh, s_max, hd = cache_k.shape
-        rows = torch.arange(b, device=x.device)
+        q, k_new, v_new = self._project_qkv(x, position[:, None], use_rope)
+        rows = torch.arange(x.shape[0], device=x.device)
         pos = position.long()
         cache_k[rows, :, pos] = k_new[:, 0].to(cache_k.dtype)
         cache_v[rows, :, pos] = v_new[:, 0].to(cache_v.dtype)
-        g = q.shape[2] // kvh
-        lengths = (pos + 1).to(torch.int32).repeat_interleave(kvh)
-        ctx = ops.flash_decode(q.reshape(b * kvh, g, hd),
-                               cache_k.view(b * kvh, s_max, hd),
-                               cache_v.view(b * kvh, s_max, hd), lengths,
-                               scale=hd ** -0.5)
-        return self._out(ctx.reshape(b, 1, -1, hd)), (cache_k, cache_v)
+        return (self._decode_attend(q, cache_k, cache_v, pos + 1),
+                (cache_k, cache_v))
 
 
 class MLA(nn.Module):

@@ -100,6 +100,16 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, mk: Maker, dim: int):
+        super().__init__()
+        self.scale = mk.param((dim,), init="ones")
+        self.bias = mk.param((dim,), init="zeros")
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -118,6 +128,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      -1).to(x.dtype)
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embeddings of integer ``positions`` [...] -> [..., dim]
+    fp32: the sines of every frequency, then the cosines."""
+    half = dim // 2
+    div = torch.exp(-np.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    return sinusoidal_at(torch.arange(length, device=device), dim)
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +200,15 @@ def _tensor(arr) -> torch.Tensor:
     return torch.tensor(arr)
 
 
+#: the JAX package's stacked pytrees (scanned layers, per-application
+#: norms): a leading axis over their members
+STACKED = {"layers", "mamba_layers", "app_norms", "enc_layers", "dec_layers"}
+
+
 def _flatten_numpy(tree, prefix: str = "") -> dict:
     """The JAX package's parameter pytree (nested dicts and lists of
-    arrays) as ``{dotted name: array}``; the stacked ``layers`` axis of
-    the scanned layers is unstacked into ``layers.<i>.<name>``, and a
+    arrays) as ``{dotted name: array}``; the leading axis of a top-level
+    :data:`STACKED` entry is unstacked into ``<key>.<i>.<name>``, and a
     list (``dense_layers``) is numbered as ``nn.ModuleList`` numbers."""
     flat = {}
     for key, val in tree.items():
@@ -187,10 +216,10 @@ def _flatten_numpy(tree, prefix: str = "") -> dict:
         if isinstance(val, (list, tuple)):
             flat.update(_flatten_numpy(dict(enumerate(val)), name + "."))
         elif isinstance(val, dict):
-            if key == "layers" and not prefix:
+            if key in STACKED and not prefix:
                 for sub, arr in _flatten_numpy(val).items():
                     for i in range(arr.shape[0]):
-                        flat[f"layers.{i}.{sub}"] = arr[i]
+                        flat[f"{key}.{i}.{sub}"] = arr[i]
             else:
                 flat.update(_flatten_numpy(val, name + "."))
         else:

@@ -1,5 +1,5 @@
-"""Selective state-space block, Mamba-1 (falcon-mamba-7b), on the
-hand-written scan (counterpart of the Mamba-1 half of
+"""Selective state-space blocks, Mamba-1 (falcon-mamba-7b) and Mamba-2
+(zamba2-1.2b's blocks), on the hand-written scan (counterpart of
 ``repro/models/ssm.py``).
 
 Recurrence (per channel d, state n):
@@ -7,15 +7,25 @@ Recurrence (per channel d, state n):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
     y_t = C_t . h_t + D * x_t
 
-``da`` and ``dbx`` are formed as the JAX package's ``REPRO_SSM_UNFUSED``
-path forms them (its fused path computes the same values a chunk at a
-time): ``da = exp(dt * A)`` with dt cast to fp32 first, ``dbx`` from
-``dt * x`` multiplied in the model's dtype, then cast to fp32 and
-multiplied by B.  The scan itself is one ``kernels.ops.mamba_scan`` call
-(the ``mamba_scan`` kernel on the card, its plain version on the CPU),
-for a whole prompt or for one decode step.
+Mamba-1: ``da`` and ``dbx`` are formed as the JAX package's
+``REPRO_SSM_UNFUSED`` path forms them (its fused path computes the same
+values a chunk at a time): ``da = exp(dt * A)`` with dt cast to fp32
+first, ``dbx`` from ``dt * x`` multiplied in the model's dtype, then cast
+to fp32 and multiplied by B.
 
-Mamba-2 waits for the hybrid slice (ROADMAP A.9(a)).
+Mamba-2 (multi-head, a scalar decay a head, B and C shared by a group of
+heads): dt in fp32, ``da = exp(dt * a)`` a head and step, ``dbx = (dt *
+x) * B`` in fp32, as the reference's fused chunk body forms them.  Its
+heads fold into the scan's batch: da and dbx ``[B * H, L, P, N]`` (da a
+head's scalar expanded over (P, N): 4.2 MB a layer a decode step at
+zamba2's batch 4), c ``[B * H, L, N]``, h0 ``[B * H, P, N]``.  dt, x, B
+and C are made head-major before the products, so that dbx is born in
+that layout, and the final state is a free view of the reference's
+``[B, H, P, N]``.
+
+Either scan is one ``kernels.ops.mamba_scan`` call (the ``mamba_scan``
+kernel on the card, its plain version on the CPU), for a whole prompt or
+for one decode step.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import Maker
+from repro_torch.models.common import Maker, RMSNorm
 
 
 def _causal_conv(x, w, b, state=None):
@@ -86,3 +96,59 @@ class Mamba(nn.Module):
         y = y.to(dtype) + xs * self.d_skip.to(dtype)
         y = y * F.silu(z)
         return y @ self.w_out.to(dtype), {"conv": new_conv, "ssm": h_last}
+
+
+class Mamba2(nn.Module):
+    """``mamba2_params`` and ``mamba2_block``."""
+
+    def __init__(self, mk: Maker, cfg):
+        super().__init__()
+        d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+        h, g = cfg.ssm_heads, cfg.ssm_groups
+        self.di, self.n, self.h, self.g = di, n, h, g
+        self.w_in = mk.param((d, 2 * di + 2 * g * n + h))
+        self.conv_w = mk.param((cfg.ssm_d_conv, di + 2 * g * n), scale=0.5)
+        self.conv_b = mk.param((di + 2 * g * n,), init="zeros")
+        self.a_log = mk.param((h,), init="zeros")
+        self.dt_bias = mk.param((h,), init="zeros")
+        self.d_skip = mk.param((h,), init="ones")
+        self.norm = RMSNorm(mk, di)
+        self.w_out = mk.param((di, d))
+
+    def forward(self, x, state=None):
+        """x: [b, l, d] -> (y, new_state); state = {"conv": [b, k-1, di +
+        2gn], "ssm": [b, h, p, n] fp32} is the decode carry."""
+        di, n, h, g = self.di, self.n, self.h, self.g
+        p = di // h
+        b, l, _ = x.shape
+        dtype = x.dtype
+        zxbcdt = x @ self.w_in.to(dtype)
+        z, xbc, dt_raw = (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * g * n],
+                          zxbcdt[..., -h:])
+        xbc, new_conv = _causal_conv(xbc, self.conv_w, self.conv_b,
+                                     state["conv"] if state else None)
+        xbc = F.silu(xbc)
+        # head-major [b, h, l, ...]; B and C repeated from g groups to h
+        # heads in jnp.repeat's order
+        xs = xbc[..., :di].unflatten(-1, (h, p)).transpose(1, 2).float(
+        ).contiguous()
+        b_t, c_t = (xbc[..., di + i * g * n:di + (i + 1) * g * n]
+                    .unflatten(-1, (g, n)).repeat_interleave(h // g, 2)
+                    .transpose(1, 2).float().contiguous() for i in (0, 1))
+        # softplus as in Mamba-1 (under 1e-8 from the JAX package's)
+        dt = F.softplus(dt_raw.float() + self.dt_bias.float()
+                        ).transpose(1, 2).contiguous()          # [b, h, l]
+        a = -torch.exp(self.a_log.float())                       # [h]
+        da = torch.exp(dt * a[:, None])[..., None, None].expand(b, h, l, p, n)
+        dbx = (dt[..., None] * xs)[..., None] * b_t[..., None, :]
+        h0 = (state["ssm"].float() if state else
+              x.new_zeros((b, h, p, n), dtype=torch.float32))
+        y, h_last = ops.mamba_scan(da.reshape(b * h, l, p, n),
+                                   dbx.view(b * h, l, p, n),
+                                   c_t.view(b * h, l, n),
+                                   h0.reshape(b * h, p, n))
+        y = y.view(b, h, l, p) + xs * self.d_skip.float()[:, None, None]
+        y = y.transpose(1, 2).reshape(b, l, di).to(dtype)
+        y = self.norm(y * F.silu(z))
+        return y @ self.w_out.to(dtype), {"conv": new_conv,
+                                          "ssm": h_last.view(b, h, p, n)}

@@ -71,15 +71,19 @@ class Engine:
         #: and the decode steps, each ended by a device synchronisation
         self.stats: dict = {}
 
-    def generate(self, prompts, steps: int, prefix_embeds=None) -> np.ndarray:
-        """prompts: [B, P] int; returns [B, steps] generated tokens."""
+    def generate(self, prompts, steps: int, frames=None,
+                 prefix_embeds=None) -> np.ndarray:
+        """prompts: [B, P] int; returns [B, steps] generated tokens.
+        ``frames`` [B, T, d] are an encdec model's encoder input,
+        ``prefix_embeds`` [B, P', d] a vlm's prefix."""
         model = self.model
         b, p = prompts.shape
         gen = None
         if self.scfg.temperature > 0:
             gen = torch.Generator(model.device).manual_seed(self.scfg.seed)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(prompts, prefix_embeds=prefix_embeds)
+        logits, cache = model.prefill(prompts, prefix_embeds=prefix_embeds,
+                                      frames=frames)
         cache = expand_cache(model, cache, b, self.scfg.max_len)
         tok = self._sample(logits, gen)
         self._sync()

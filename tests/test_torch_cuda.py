@@ -119,8 +119,10 @@ ATTN_CASES = [
     (1, 320, 2, 64, False),
 ]
 
-# (b, l, d, n): tests/test_kernels.py's mamba_scan grid
-SCAN_CASES = [(2, 64, 32, 16), (1, 128, 64, 8), (2, 256, 16, 4)]
+# (b, l, d, n): tests/test_kernels.py's mamba_scan grid, and Mamba-2's
+# state width 64 (zamba2-1.2b), two state elements a lane
+SCAN_CASES = [(2, 64, 32, 16), (1, 128, 64, 8), (2, 256, 16, 4),
+              (2, 64, 32, 64)]
 
 
 def _proj_inputs(b, sq, skv, d, k_out, n_out):
@@ -486,6 +488,8 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda, arch):
 @pytest.mark.parametrize("b,l,d,n", SCAN_CASES + [
     (1, 37, 33, 16),                         # ragged L and channel block
     (2, 40, 24, 3),                          # N padded to 4
+    (1, 37, 33, 64),                         # ragged, two elements a lane
+    (2, 40, 24, 48),                         # N padded to 64
 ])
 def test_mamba_scan_kernel_matches_plain(cuda, b, l, d, n):
     da, dbx, c, h0 = (_t(a, cuda) for a in _scan_inputs(b, l, d, n))
@@ -497,6 +501,30 @@ def test_mamba_scan_kernel_matches_plain(cuda, b, l, d, n):
     # the state is a rounded multiply then a rounded add in both
     # versions: bit-equal; y differs only in its sum order over n
     assert torch.equal(h, h_ref)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4 * n)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_mamba2_folded(cuda):
+    """Mamba-2's call (``models.ssm.Mamba2``): heads folded into the
+    batch, [B * H, L, P, N] at N = 64, da a head's scalar a step expanded
+    over (P, N), a stride-0 view the wrapper makes contiguous.  The state
+    bit-equal, y within the sum order's tolerance."""
+    b, h, seq, p, n = 2, 4, 33, 64, 64
+    dt = _t(RNG.uniform(0.01, 0.2, (b, h, seq)).astype(np.float32), cuda)
+    a = -_t(RNG.uniform(0.5, 2.0, (h,)).astype(np.float32), cuda)
+    da = torch.exp(dt * a[:, None])[..., None, None].expand(
+        b, h, seq, p, n).reshape(b * h, seq, p, n)
+    assert da.stride()[-2:] == (0, 0)
+    dbx = _t(_np((b * h, seq, p, n), 0.1), cuda)
+    c = _t(_np((b * h, seq, n)), cuda)
+    h0 = _t(_np((b * h, p, n), 0.1), cuda)
+    before = ms.launches
+    y, h_last = ops.mamba_scan(da, dbx, c, h0)
+    y_ref, h_ref = ref.mamba_scan_ref(da, dbx, c, h0)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+    assert torch.equal(h_last, h_ref)
     torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4 * n)
 
 
@@ -698,19 +726,35 @@ def _zoo_config(arch):
     cfg = reduced(get_config(arch))
     if arch == "qwen2-72b":          # a GQA group of 4 query heads
         cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=2)
+    if arch == "zamba2-1.2b":        # two applications, a tail, N = 64
+        cfg = dataclasses.replace(cfg, num_layers=5, ssm_state=64)
     return cfg
+
+
+def _zoo_counts():
+    return {"flash_attention": fa.attention_launches,
+            "flash_decode": fa.launches, "mamba_scan": ms.launches}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in _leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["gemma-7b", "qwen2-72b",
                                   "falcon-mamba-7b", "granite-moe-3b-a800m",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "zamba2-1.2b",
+                                  "whisper-base"])
 def test_reduced_model_kernel_path_matches_its_cpu_path(cuda, arch):
     """A reduced model (fp32) on the card, its attention and scan in the
     kernels, against the same parameters on the CPU (the plain versions):
     prefill logits and cache, then a decode step's logits, within 2e-4 +
-    2e-4 * |cpu|; one kernel launch a layer at prefill and a decode
-    step."""
+    2e-4 * |cpu|; each family's launches exact at prefill and at a
+    decode step (``chip_smoke.zoo_launches``)."""
     from repro_torch.models import build_model
     from repro_torch.serve import expand_cache
     cfg = _zoo_config(arch)
@@ -719,30 +763,28 @@ def test_reduced_model_kernel_path_matches_its_cpu_path(cuda, arch):
     card = build_model(cfg, device=cuda)
     card.load_state_dict(cpu.state_dict())
     toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 12)))
-    ssm_family = cfg.family == "ssm"
-    kernel, count = (ms, "launches") if ssm_family else \
-        (fa, "attention_launches")
-    before = getattr(kernel, count)
-    want, cache_c = cpu.prefill(toks)
-    got, cache_g = card.prefill(toks)
-    torch.cuda.synchronize()
-    assert getattr(kernel, count) == before + cfg.num_layers
-    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = _np((2, cfg.frontend_len, cfg.d_model), 0.02)
+    at_prefill, a_step = _chip_smoke().zoo_launches(cfg)
 
-    def leaves(cache):
-        if ssm_family:
-            return list(cache["layers"].values())
-        return [t for key in sorted(cache) for t in cache[key]]
-    for c, g in zip(leaves(cache_c), leaves(cache_g)):
+    def launched(run):
+        before = _zoo_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in _zoo_counts().items()
+                     if v != before[k]}
+    want, cache_c = cpu.prefill(toks, **kw)
+    (got, cache_g), n = launched(lambda: card.prefill(toks, **kw))
+    assert n == at_prefill
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    for c, g in zip(_leaves(cache_c), _leaves(cache_g), strict=True):
         torch.testing.assert_close(g.cpu(), c, rtol=2e-4, atol=2e-4)
     cache_c, cache_g = (expand_cache(m, c, 2, 16) for m, c in
                         ((cpu, cache_c), (card, cache_g)))
     tok = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 1)))
     pos = torch.tensor([12, 9], dtype=torch.int32)
-    kernel = ms if ssm_family else fa
-    before = kernel.launches
     want, _ = cpu.decode_step(tok, cache_c, pos)
-    got, _ = card.decode_step(tok, cache_g, pos)
-    torch.cuda.synchronize()
-    assert kernel.launches == before + cfg.num_layers
+    (got, _), n = launched(lambda: card.decode_step(tok, cache_g, pos))
+    assert n == a_step
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

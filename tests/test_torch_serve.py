@@ -19,7 +19,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, ServeConfig, expand_cache
-from test_torch_models import ARCHS, GEMMA_MOE, GQA, pair
+from test_torch_models import ARCHS, GEMMA_MOE, GQA, ZAMBA2_TAIL, pair
 
 B, P, STEPS = 3, 10, 8
 
@@ -35,7 +35,8 @@ def _prompts(cfg, seed=0):
 
 
 @pytest.mark.parametrize("arch,extra",
-                         [(a, ()) for a in ARCHS] + [GQA, GEMMA_MOE])
+                         [(a, ()) for a in ARCHS] + [GQA, GEMMA_MOE]
+                         + [("zamba2-1.2b", ()), ZAMBA2_TAIL])
 def test_greedy_tokens_equal_the_reference_engine(arch, extra):
     jm, params, model = pair(arch, extra)
     prompts, prefix = _prompts(model.cfg)
@@ -101,19 +102,15 @@ def test_engine_refuses_a_model_on_another_device():
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "internvl2-26b",
                                   "falcon-mamba-7b", "granite-moe-3b-a800m",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "zamba2-1.2b",
+                                  "whisper-base"])
 def test_launch_serve_runs_on_the_cpu(arch, capsys):
     """The CLI sizes the cache to prompt + steps + 1, as the JAX
-    package's does, so a vlm's prefix (8 reduced) must fit in steps + 1."""
+    package's does, so a vlm's prefix (8 reduced) must fit in steps + 1;
+    an encdec model's frames are drawn after the prompts."""
     tokens = launch_serve.main(["--arch", arch, "--reduced", "--device",
                                 "cpu", "--batch", "2", "--prompt-len", "8",
                                 "--steps", "8"])
     out = capsys.readouterr().out.splitlines()
     assert re.match(r"generated \(2, 8\) in [\d.]+s \([\d.]+ tok/s\)", out[0])
     assert tokens.shape == (2, 8) and (tokens < 1024).all()
-
-
-def test_launch_serve_refuses_a_family_not_ported():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9\(a\)"):
-        launch_serve.main(["--arch", "zamba2-1.2b", "--reduced", "--device",
-                           "cpu"])
