@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving main path on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's serving and training main paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,14 @@ Phases (any failure exits non-zero; no phase catches its own):
      and at zamba2-1.2b's folded Mamba-2 scan (N = 64), the state
      bit-equal to the plain version's in both.  The attention kernels'
      library call is SDPA on 4-D inputs, every route that takes them
-     timed, the fastest kept;
+     timed, the fastest kept.  The backward kernels at phase 11's
+     shapes: flash_attention with its log-sum-exp (o bit-equal to the
+     call without) and flash_attention_bwd, bf16 and fp32, at zamba2's
+     [2 * 32, 1024, 64] causal, the backward's library call the backward
+     of SDPA (every route, the fastest kept), its bound the five
+     products; mamba_scan_bwd at [2 * 64, 1024, 64, 64] (dda, ddbx and
+     dh0 bit-equal to the plain version, dc within fp32 tolerance); each
+     backward run twice, torch.equal;
   3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
      heads at 4096 tokens and ``ops.mamba_scan`` at falcon-mamba-7b's
      width, bit-equal to the kernels checked in phase 2;
@@ -93,9 +101,27 @@ Phases (any failure exits non-zero; no phase catches its own):
      decode after a prefill equal to the longer prefill (rtol and atol
      2e-3).  Phase 2 also times flash_attention and flash_decode at
      MLA's shapes (rows flash_attention_mla and flash_decode_mla).
+ 11. training: ``python -m repro_torch.launch.train`` 's main path
+     (``launch.train.Run``) for zamba2-1.2b at full width and depth, bf16
+     weights and fp32 AdamW state, batch 2 x 1024 tokens, peak lr 1e-3,
+     30 steps on ``SyntheticLM`` (the peak memory reckoned first, then
+     read): every loss finite and the mean of the last 5 at least 0.2
+     below the first 5's; launches exact (``train_launches``: a step runs
+     flash_attention and flash_attention_bwd once an application of the
+     shared block, mamba_scan twice a Mamba block, forward and the
+     remat's recompute, and mamba_scan_bwd once); ms a step, tokens/s,
+     peak GiB, and one more step traced by ``torch.profiler`` (the
+     device's idle share, the operators by device time).  Then at full
+     width and depth 7, one step's gradients on the kernels, twice
+     (torch.equal), against the same step on the plain versions
+     differentiated by autograd, per parameter relative L2 within
+     ``TRAIN_GRAD_TOL`` (bf16 and fp32); and two steps straight against
+     one step, a checkpoint, a new run resumed from it (``--resume
+     auto``) and one step: every parameter and optimizer tensor
+     torch.equal.
 
-Phase 10 runs last, after phase 9's weights are freed, and frees what it
-makes.  Ends with the ``kernels`` JSON line (a row per route, each with
+Phases 10 and 11 run last, after phase 9's weights are freed, and free
+what they make.  Ends with the ``kernels`` JSON line (a row per route, each with
 its own path's launches and what its times were taken at), the card's
 name and power limit, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -136,7 +162,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_chain as fc  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nest_gemm as ng  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import DecoderLayer  # noqa: E402
@@ -313,6 +342,7 @@ def sdpa_library(timer, name: str, want, then, q, k, v, **kw) -> dict:
 def reset_counts() -> None:
     ng.launches = fc.launches = fa.launches = 0
     fa.proj_launches = fa.attention_launches = ms.launches = 0
+    fa.attention_bwd_launches = ms.bwd_launches = 0
 
 
 def counts() -> dict:
@@ -320,7 +350,9 @@ def counts() -> dict:
             "flash_decode": fa.launches,
             "flash_decode_proj": fa.proj_launches,
             "flash_attention": fa.attention_launches,
-            "mamba_scan": ms.launches}
+            "flash_attention_bwd": fa.attention_bwd_launches,
+            "mamba_scan": ms.launches,
+            "mamba_scan_bwd": ms.bwd_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2255,6 +2287,447 @@ def zoo_phase(name_limit: str, device="cuda") -> tuple[dict, dict]:
     return zoo, by_arch
 
 
+
+# ---------------------------------------------------------------------------
+# phase 2, the backward kernels; phase 11: training
+# ---------------------------------------------------------------------------
+
+#: zamba2-1.2b's shared attention in phase 11's training step: batch 2 x
+#: 32 heads of 64, 1024 tokens, causal
+TRAIN_ATTN_CASE = (64, 1024, 64)
+#: zamba2-1.2b's folded Mamba-2 scan in phase 11's training step: batch 2
+#: x 64 heads folded into the batch, 1024 tokens, P 64, N 64
+TRAIN_SCAN_SHAPE = (128, 1024, 64, 64)
+#: the gradient kernels against their plain versions: |err| within
+#: RTOL * |want| + ATOL_FRAC * RMS(want).  bf16: both round an fp32 sum
+#: to bf16, which another sum order can move by one bf16 ulp (2^-8 of
+#: |want|, 2^-7 at the bottom of a binade); fp32: sums of up to 1024
+#: terms in another order
+GRAD_TOL = {torch.bfloat16: (2 ** -7, 1e-3), torch.float32: (2e-4, 2e-4)}
+
+
+def check_grads(name: str, got, want, dtype) -> float:
+    """Each of ``got`` against ``want`` within ``GRAD_TOL[dtype]``, all
+    finite; returns the largest |err|."""
+    rtol, frac = GRAD_TOL[dtype]
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g, w = g.float(), w.float()
+        rms = float(w.pow(2).mean().sqrt())
+        err = (g - w).abs()
+        assert rms > 0, f"{name}[{i}]: the plain result is all zeros"
+        if not bool(torch.isfinite(g).all()) or bool(
+                (err > rtol * w.abs() + frac * rms).any()):
+            raise AssertionError(f"{name}[{i}]: kernel disagrees with its "
+                                 f"plain version (max |err| "
+                                 f"{float(err.max())}, RMS {rms})")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def sdpa_backward_library(timer, name: str, want, q, k, v, do) -> dict:
+    """The attention backward's library call: the backward of SDPA on 4-D
+    inputs, causal, for every route that takes them (the forward run once
+    under the route, its graph kept; one ``torch.autograd.grad`` timed);
+    each route's error against ``want`` (dq, dk, dv) logged, the fastest
+    route's timing returned."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [x[None].detach().requires_grad_() for x in (q, k, v)]
+    best, parts = None, []
+    for route in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        route_name = route.name.lower()
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([route]):
+                warnings.simplefilter("ignore")
+                out = sdpa(*leaves, is_causal=True)
+
+                def call(out=out):
+                    return torch.autograd.grad(out, leaves, do[None],
+                                               retain_graph=True)
+                got = call()
+        except RuntimeError:        # the route does not take the inputs
+            parts.append(f"{route_name} -")
+            continue
+        err = max(float((g[0].float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        t = timer(call)
+        parts.append(f"{route_name} {spread(t)} (max_err {err:.3g})")
+        if best is None or t["ms"] < best["ms"]:
+            best = {**t, "route": route_name}
+        del out, got
+    assert best is not None, f"{name}: no SDPA route takes the inputs"
+    log(f"  {name} library, the backward of SDPA on 4-D inputs: "
+        f"{'; '.join(parts)}; fastest {best['route']}")
+    return best
+
+
+def check_flash_attention_bwd(timer, gen, dtype) -> tuple[dict, dict]:
+    """flash_attention's forward with its log-sum-exp (the training
+    path's call: ``o`` bit-equal to the call without) and
+    flash_attention_bwd at ``TRAIN_ATTN_CASE`` in ``dtype``, each against
+    its plain version, the backward twice ``torch.equal``; timed beside
+    their bounds and SDPA (forward; backward).  Returns the rows
+    (forward, backward)."""
+    bh, s, d = TRAIN_ATTN_CASE
+    # q at 8x: a peaked softmax whose output RMS is over 10x check()'s
+    # atol, as at ATTN_SHAPE
+    q = (torch.randn(bh, s, d, device="cuda", generator=gen) * 8.0
+         ).to(dtype)
+    k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen
+                            ).to(dtype) for _ in range(3))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(o, fa.flash_attention(q, k, v, causal=True))
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, causal=True,
+                                               return_lse=True)
+    rate = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_3XTF32
+    tag = str(dtype).split(".")[1]
+    name = f"flash_attention {tag} {TRAIN_ATTN_CASE} (training, lse)"
+    # o as the forward rows hold it (one bf16 ulp more in bf16, as
+    # flash_attention_enc), lse in fp32
+    err_o = check(name, o.float(), want_o.float(), d,
+                  RTOL + (2 ** -7 if dtype == torch.bfloat16 else 0))
+    check_grads(name + " lse", [lse], [want_lse], torch.float32)
+    pairs = bh * s * (s + 1) / 2                    # causal pairs only
+    elt = q.element_size()
+    f_bytes, f_flops = 4.0 * bh * s * d * elt + 4.0 * bh * s, 4.0 * pairs * d
+    f_ms = timer(lambda: fa.flash_attention(q, k, v, causal=True,
+                                            return_lse=True))
+    f_plain = timer(lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                    return_lse=True))
+    f_lib = sdpa_library(timer, name, want_o, lambda x: x[0], q[None],
+                         k[None], v[None], is_causal=True)
+    b_ms, b_by = bound(f_bytes, f_flops, rate)
+    log(f"K5 {name}: max_err {err_o:.3g}, o bit-equal to the call without "
+        f"lse | ms {spread(f_ms)} plain {f_plain['ms']:.4f} sdpa "
+        f"{f_lib['ms']:.4f} ({f_lib['route']}) bound {b_ms:.6f} ({b_by})")
+    fwd = row_stats(f_ms, f_plain, f_lib, f_bytes, f_flops, err_o, rate)
+
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "flash_attention_bwd: two runs differ"
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    name = f"flash_attention_bwd {tag} {TRAIN_ATTN_CASE}"
+    err = check_grads(name, got, want, dtype)
+    ms_ = timer(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=True))
+    plain = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                      causal=True))
+    lib = sdpa_backward_library(timer, name, want, q, k, v, do)
+    nbytes = 8.0 * bh * s * d * elt + 4.0 * bh * s
+    flops = 5 * 2.0 * pairs * d                     # the five products
+    b_ms, b_by = bound(nbytes, flops, rate)
+    log(f"K5b {name}: causal | max_err {err:.3g}, two runs torch.equal | "
+        f"ms {spread(ms_)} plain {plain['ms']:.4f} sdpa backward "
+        f"{lib['ms']:.4f} ({lib['route']}) bound {b_ms:.6f} ({b_by}) "
+        f"(FFMA bound {bound(nbytes, flops)[0]:.4f})")
+    return fwd, row_stats(ms_, plain, lib, nbytes, flops, err, rate)
+
+
+def check_mamba_scan_bwd(timer, gen) -> dict:
+    """mamba_scan_bwd at ``TRAIN_SCAN_SHAPE`` (da a head's scalar
+    expanded, as Mamba-2 gives it; dh_last zero, as the models give it)
+    against its plain version: dda, ddbx and dh0 bit-equal, dc within
+    fp32 tolerance; two runs ``torch.equal``; timed beside its bound (no
+    library call computes the scan)."""
+    b, seq, d, n = TRAIN_SCAN_SHAPE
+    da = (0.7 + 0.299 * torch.rand(b, seq, device="cuda", generator=gen)
+          )[..., None, None].expand(b, seq, d, n).contiguous()
+    dbx = torch.randn(b, seq, d, n, device="cuda", generator=gen) * 0.1
+    c = torch.randn(b, seq, n, device="cuda", generator=gen)
+    h0 = torch.randn(b, d, n, device="cuda", generator=gen) * 0.1
+    dy = torch.randn(b, seq, d, device="cuda", generator=gen)
+    got = ms.mamba_scan_bwd(da, dbx, c, h0, dy)
+    again = ms.mamba_scan_bwd(da, dbx, c, h0, dy)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "mamba_scan_bwd: two runs differ"
+    del again
+    want = ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy)
+    name = f"mamba_scan_bwd {TRAIN_SCAN_SHAPE} (Mamba-2, da per head)"
+    for i in (0, 1, 3):     # rounded multiplies and adds in both versions
+        assert torch.equal(got[i], want[i]), (
+            name, i, float((got[i] - want[i]).abs().max()))
+    err = check_grads(name, [got[2]], [want[2]], torch.float32)
+    del got, want
+    ms_ = timer(lambda: ms.mamba_scan_bwd(da, dbx, c, h0, dy))
+    plain = timer(lambda: ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy), 3)
+    nbytes = 4.0 * (4 * b * seq * d * n + 2 * b * seq * n + 2 * b * d * n
+                    + b * seq * d)
+    flops = 6.0 * b * seq * d * n
+    log(f"K6b {name}: dda, ddbx, dh0 bit-equal, dc max_err {err:.3g}, two "
+        f"runs torch.equal | ms {spread(ms_)} plain {plain['ms']:.4f} "
+        f"library none | bound {bound(nbytes, flops)[0]:.4f}")
+    return row_stats(ms_, plain, None, nbytes, flops, err)
+
+
+#: phase 11's run: ``python -m repro_torch.launch.train`` with these flags
+#: (the card, bf16, params drawn from a generator seeded 0)
+TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--batch", "2", "--seq", "1024",
+              "--lr", "1e-3", "--steps", "30", "--log-every", "5"]
+#: the depth of the gradient and checkpoint gates: six Mamba-2 blocks,
+#: one application of the shared block, a tail block
+TRAIN_GATE_DEPTH = 7
+#: relative L2 of a parameter's gradient on the kernels against the same
+#: step on the plain versions through autograd.  bf16: the plain
+#: attention's autograd takes dV from its bf16-rounded probabilities and
+#: D from its fp32 output, the kernel from fp32 P and the bf16 output, a
+#: 2^-9 difference an element that the bf16 backward carries on (read
+#: 7.6e-3 median, 1.5e-2 worst, on an H100).  fp32: only sum orders
+#: differ (the forward's 3xTF32 products ~1e-6, the backward's and the
+#: scan's fp32 sums; read 5e-6 worst)
+TRAIN_GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The kernels a training step of a hybrid model launches, times
+    ``steps``: attention forward and backward once an application of the
+    shared block (not rematerialised), the scan twice a Mamba block
+    (forward, and again in the backward's recompute) and its backward
+    once."""
+    n, apps = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    step = {"flash_attention": apps, "flash_attention_bwd": apps,
+            "mamba_scan": 2 * n, "mamba_scan_bwd": n}
+    return {k: step.get(k, 0) * steps for k in counts()}
+
+
+def reckon_training_memory(cfg, batch: int, seq: int) -> float:
+    """GiB the step should peak at: 16 bytes a parameter (bf16 weights
+    and gradients, fp32 master and moments), the saved activations (each
+    block's input, the shared block's internals, the fp32 logits and
+    their gradient) and one Mamba-2 block's recompute and backward, whose
+    folded scan tensors [B * H, L, P, N] fp32 are the large ones: da, dbx
+    and their gradients, the d(dt * x) and dB products of ddbx, the
+    expand's copy and the kernel's checkpoints (about seven of them)."""
+    params = param_count(cfg)
+    tokens = batch * seq
+    scan = 4.0 * tokens * cfg.ssm_heads * (cfg.ssm_d_inner // cfg.ssm_heads) \
+        * cfg.ssm_state
+    saved = 2.0 * tokens * cfg.d_model * (cfg.num_layers + 24) \
+        + 3 * 4.0 * tokens * cfg.vocab_size
+    return (16.0 * params + saved + 7 * scan) / 2 ** 30
+
+
+def param_count(cfg) -> int:
+    return build_model(cfg, device="meta").param_count()
+
+
+def train_data(cfg) -> SyntheticLM:
+    """The batches ``launch.train`` gives ``cfg`` at ``TRAIN_ARGV``'s
+    shape."""
+    args = launch_train.parse(TRAIN_ARGV)
+    return SyntheticLM(DataConfig(vocab_size=min(cfg.vocab_size, 4096)),
+                       cfg, ShapeConfig("cli", args.seq, args.batch,
+                                        "train"))
+
+
+def plain_attention_core(q, k, v, *, causal, bq, bkv, kv_len):
+    """``ops.attention_core`` on the plain version, differentiated by
+    autograd (no Function, no kernel)."""
+    return ref.flash_attention_ref(q, k, v, causal=causal, bq=bq, bkv=bkv,
+                                   kv_len=kv_len)
+
+
+def step_grads(model, batch) -> dict:
+    """One step's loss backward: {name: gradient as fp32}, the parameters'
+    gradients cleared after."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss(batch)
+    loss.backward()
+    out = {n: p.grad.float() for n, p in model.net.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def training_grad_gate(dtype: str, device="cuda") -> dict:
+    """At full width and ``TRAIN_GATE_DEPTH``, in ``dtype``: one step's
+    gradients on the kernels, twice (``torch.equal``), against the same
+    step with ``ops.attention_core`` and ``ops.scan_core`` swapped for the
+    plain versions, differentiated by autograd (no kernel launched):
+    every parameter's relative L2 within ``TRAIN_GRAD_TOL``.  Returns the
+    kernels' launches in the first kernel run."""
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              num_layers=TRAIN_GATE_DEPTH, dtype=dtype)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device).manual_seed(0))
+    model.requires_grad_(True)
+    batch = train_data(cfg).batch(0)
+    reset_counts()
+    got = step_grads(model, batch)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    t0 = time.perf_counter()
+    again = step_grads(model, batch)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    assert all(torch.equal(got[n], again[n]) for n in got), \
+        "a training step's gradients differ between two runs"
+    del again
+    reset_counts()
+    t0 = time.perf_counter()
+    with Swap(ops, "attention_core", plain_attention_core), \
+            Swap(ops, "scan_core", ref.mamba_scan_ref):
+        want = step_grads(model, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    assert not any(counts().values()), counts()
+    rel = {n: float((got[n] - want[n]).norm() / want[n].norm())
+           for n in got if float(want[n].norm()) > 0}
+    worst = max(rel, key=rel.get)
+    tol = TRAIN_GRAD_TOL[dtype]
+    log(f"train {dtype} depth {TRAIN_GATE_DEPTH}: gradients on the kernels "
+        f"(launches {launched}, two runs torch.equal) against the plain "
+        f"versions through autograd: relative L2 median "
+        f"{statistics.median(rel.values()):.3g}, worst {rel[worst]:.3g} "
+        f"({worst}) over {len(rel)} tensors; limit {tol}; loss and "
+        f"backward {kernel_s * 1e3:.0f} ms on the kernels, "
+        f"{plain_s * 1e3:.0f} ms on the plain versions")
+    assert all(torch.isfinite(g).all() for g in got.values())
+    assert rel[worst] <= tol, (worst, rel[worst])
+    del model, got, want
+    torch.cuda.empty_cache()
+    return launched
+
+
+def training_checkpoint_gate(device="cuda") -> None:
+    """At full width and ``TRAIN_GATE_DEPTH``, bf16, through
+    ``launch.train``'s save and ``--resume auto``: two steps straight
+    against one step, a checkpoint, a new run resumed from it and one
+    more step: every parameter and optimizer tensor ``torch.equal``."""
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              num_layers=TRAIN_GATE_DEPTH)
+    base = TRAIN_ARGV + ["--steps", "2", "--device", device]
+    straight = launch_train.Run(launch_train.parse(base), cfg)
+    straight.train()
+    want = {"params": dict(straight.model.net.named_parameters()),
+            **{k: straight.opt_state[k] for k in ("master", "mu", "nu")}}
+    with tempfile.TemporaryDirectory() as ckdir:
+        argv = base + ["--ckpt-dir", ckdir, "--resume", "auto"]
+        first = launch_train.Run(launch_train.parse(argv), cfg)
+        first.step_fn(first.opt_state, first.data.batch(0))
+        t0 = time.perf_counter()
+        first.save(1)
+        saved_s = time.perf_counter() - t0
+        del first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = launch_train.Run(launch_train.parse(argv), cfg)
+        restored_s = time.perf_counter() - t0
+        assert resumed.start == 1 and resumed.opt_state["step"] == 1
+        resumed.train()
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(ckdir) for f in fs)
+    got = {"params": dict(resumed.model.net.named_parameters()),
+           **{k: resumed.opt_state[k] for k in ("master", "mu", "nu")}}
+    for part in want:
+        for n in want[part]:
+            assert torch.equal(got[part][n], want[part][n]), (part, n)
+    log(f"train checkpoint: 2 steps straight == 1 step, save ({saved_s:.1f}"
+        f" s), resume ({restored_s:.1f} s, a new run), 1 step: every "
+        f"parameter and optimizer tensor torch.equal; {size / 2 ** 30:.2f} "
+        f"GiB on disk")
+    del straight, resumed, want, got
+    torch.cuda.empty_cache()
+
+
+def device_idle_share(run, step: int) -> tuple[float, float]:
+    """One more step of ``run`` traced by ``torch.profiler``: (its wall
+    seconds, the share of them in which no kernel ran on the card); the
+    operators that took the most device time are logged."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = run.data.batch(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step_fn(run.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy, end = 0.0, None            # the union of the kernels' spans
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=20)
+    log("train: a step's operators by device time")
+    for line in table.splitlines():
+        log("  " + line)
+    return wall, 1.0 - busy * 1e-6 / wall
+
+
+def training_phase(device="cuda") -> tuple[dict, dict]:
+    """Phase 11; returns the kernels' launches in the main run (30 steps)
+    and in the fp32 gradient gate's first kernel run."""
+    stage("phase 11: training zamba2-1.2b at full width and depth")
+    args = launch_train.parse(TRAIN_ARGV + ["--device", device])
+    cfg = get_config(args.arch)
+    log(f"train: {param_count(cfg) / 1e9:.3f} B parameters, batch "
+        f"{args.batch} x seq {args.seq}; reckoned peak "
+        f"{reckon_training_memory(cfg, args.batch, args.seq):.1f} GiB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = launch_train.Run(args)
+    losses, times = [], []
+    last = [None, {k: 0 for k in counts()}]
+    a_step = train_launches(run.cfg, 1)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        now_counts = counts()
+        step_counts = {k: v - last[1][k] for k, v in now_counts.items()}
+        assert step_counts == a_step, (step, step_counts, a_step)
+        last[0], last[1] = now, now_counts
+        losses.append(float(metrics["loss"]))
+
+    reset_counts()
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    run.train(on_step)
+    torch.cuda.synchronize()
+    launched = counts()
+    expect = train_launches(run.cfg, args.steps)
+    log(f"train: launches {launched}, each step's exactly "
+        f"{ {k: v for k, v in a_step.items() if v} }")
+    assert launched == expect, (launched, expect)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    assert all(map(lambda x: x == x and abs(x) != float("inf"), losses)), \
+        losses
+    steady = statistics.median(times[2:])
+    tokens = args.batch * args.seq
+    log(f"train: losses {[round(x, 4) for x in losses]}")
+    log(f"train: mean loss of the first 5 steps {first:.4f}, of the last 5 "
+        f"{last5:.4f} (drop {first - last5:.4f}, at least 0.2 required); "
+        f"first step {times[0] * 1e3:.1f} ms, then median "
+        f"{steady * 1e3:.1f} ms a step [{min(times[2:]) * 1e3:.1f}.."
+        f"{max(times[2:]) * 1e3:.1f}], {tokens / steady:.0f} tokens/s; peak "
+        f"{peak:.2f} GiB allocated")
+    assert last5 < first - 0.2, (first, last5)
+    wall, idle = device_idle_share(run, args.steps)
+    log(f"train: a traced step {wall * 1e3:.1f} ms, device idle share "
+        f"{idle:.3f}")
+    del run
+    torch.cuda.empty_cache()
+    stage("phase 11: gradients against the plain versions, depth 7")
+    training_grad_gate("bfloat16", device)
+    f32 = training_grad_gate("float32", device)
+    stage("phase 11: checkpoint and resume, depth 7")
+    training_checkpoint_gate(device)
+    return launched, f32
+
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py", file=sys.stderr)
@@ -2319,6 +2792,10 @@ def main(argv) -> int:
     k6, scan = check_mamba_scan(timer, gen)
     k6m = check_mamba_scan(timer, gen, SCAN_MAMBA2_SHAPE, per_head=True)[0]
     torch.cuda.empty_cache()
+    k5t, k5tb = check_flash_attention_bwd(timer, gen, torch.bfloat16)
+    _, k5tb32 = check_flash_attention_bwd(timer, gen, torch.float32)
+    k6b = check_mamba_scan_bwd(timer, gen)
+    torch.cuda.empty_cache()
     clocks("after phase 2")
     del timer
     torch.cuda.empty_cache()
@@ -2343,6 +2820,7 @@ def main(argv) -> int:
     del fw_weights
     torch.cuda.empty_cache()
     zoo, zoo_by_arch = zoo_phase(name_limit)
+    train, train32 = training_phase()
     mla = zoo_by_arch["deepseek-v2-236b"]
     falcon, zamba = zoo_by_arch["falcon-mamba-7b"], zoo_by_arch["zamba2-1.2b"]
 
@@ -2392,8 +2870,25 @@ def main(argv) -> int:
              op["mamba_scan"] + falcon["mamba_scan"]),
             ("mamba_scan_mamba2", "mamba_scan",
              "src/repro/kernels/mamba_scan.py:61", k6m,
-             f"fp32 {SCAN_MAMBA2_SHAPE}, da a head's scalar",
-             zamba["mamba_scan"])):
+             f"fp32 {SCAN_MAMBA2_SHAPE}, da a head's scalar; launches: "
+             f"zamba2's serve and phase 11's training",
+             zamba["mamba_scan"] + train["mamba_scan"]),
+            ("flash_attention_train", "flash_attention",
+             "src/repro/kernels/flash_attention.py:99", k5t,
+             f"bf16 {TRAIN_ATTN_CASE} causal, with lse (phase 11's call)",
+             train["flash_attention"]),
+            ("flash_attention_bwd", "flash_attention_bwd",
+             "src/repro/kernels/flash_attention.py:99", k5tb,
+             f"bf16 {TRAIN_ATTN_CASE} causal, the gradient of "
+             f"flash_attention (phase 11)", train["flash_attention_bwd"]),
+            ("flash_attention_bwd_f32", "flash_attention_bwd",
+             "src/repro/kernels/flash_attention.py:99", k5tb32,
+             f"fp32 {TRAIN_ATTN_CASE} causal; launches: phase 11's fp32 "
+             f"gradient gate", train32["flash_attention_bwd"]),
+            ("mamba_scan_bwd", "mamba_scan_bwd",
+             "src/repro/kernels/mamba_scan.py:61", k6b,
+             f"fp32 {TRAIN_SCAN_SHAPE}, da a head's scalar, the gradient "
+             f"of mamba_scan (phase 11)", train["mamba_scan_bwd"])):
         b_ms, b_by = bound(stats["bytes"], stats["flops"], stats["rate"])
         rows.append({"name": name, "route": "cuda",
                      "source": f"{src}{file}.cu", "replaces": replaces,

@@ -14,7 +14,8 @@ Each kernel whose source the directory holds is compared; an earlier
 source must have the C interface of the commit named above:
 ``nest_gemm_f32(x, w, o, M, K, N, out_t, act, stream)`` and
 ``fused_chain_f32`` with one block per M block (commit 69a36e5);
-``flash_attention_fwd`` as it is now (commit 273c856);
+``flash_attention_fwd`` without the lse pointer it took later (commits
+273c856 to 6eaa34c);
 ``flash_decode_f32`` as it is now (commit bac22f7, the kernel before its
 bf16 route); ``flash_decode_proj_f32`` as it is now (commit bac22f7).  They
 are built with the port's nvcc flags.  On the same inputs, for each of

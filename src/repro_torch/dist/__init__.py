@@ -3,7 +3,10 @@
   mesh      ArrayMesh: N logical FEATHER+ arrays, one sub-backend each
   sharding  the GEMM-rank axis policy ``core/program.shard_program``
             uses (``GEMM_AXIS_RULES``, ``gemm_shard_axis``)
-  elastic   the atomic serving snapshot a killed serve resumes from
+  elastic   resume from the latest checkpoint; the atomic serving
+            snapshot a killed serve resumes from
+  compression
+            the int8 round trip of gradient compression
 
 It imports only torch, numpy and the standard library.
 """

@@ -1,4 +1,11 @@
-"""Serving-state snapshots: the file a chaos-killed serve resumes from.
+"""Resume from the latest checkpoint, and serving-state snapshots: the
+file a chaos-killed serve resumes from (counterpart of
+``repro/dist/elastic.py``).
+
+``resume`` restores the latest checkpoint of a
+:class:`~repro_torch.ckpt.manager.CheckpointManager` into a target
+tree's structure on one device: the JAX package's restore onto a new
+mesh's shardings, on a single card.
 
 ``save_serving_snapshot``/``load_serving_snapshot`` persist a
 :class:`~repro_torch.runtime.scheduler.Scheduler`'s request state --
@@ -14,6 +21,17 @@ from __future__ import annotations
 import os
 import pickle
 import tempfile
+
+
+def resume(manager, abstract_tree, device=None):
+    """(restored tree | None, start step): the latest checkpoint of
+    ``manager`` restored into ``abstract_tree``'s structure (tensor
+    leaves, ``meta`` ones too, give their shapes and dtypes) on
+    ``device``; (None, 0) when the directory holds no checkpoint."""
+    step = manager.latest_step()
+    if step is None:
+        return None, 0
+    return manager.restore(step, abstract_tree, device=device), step
 
 
 def save_serving_snapshot(path: str | os.PathLike, snapshot: dict) -> str:

@@ -7,9 +7,13 @@
                                          ... with the adapt + Wo projection
                    csrc/flash_attention.cu
                                          prefill attention, causal or full
+                   csrc/flash_attention_bwd.cu
+                                         ... its gradients (dq, dk, dv)
   mamba_scan       csrc/mamba_scan.cu    the selective-scan recurrence
+                   csrc/mamba_scan_bwd.cu
+                                         ... its gradients, reverse scan
   ref              the plain PyTorch version of each kernel
   ops              wrappers: the kernel on the card, the plain version on
-                   the CPU
+                   the CPU; autograd Functions for the two with gradients
   build            nvcc into ``_build/`` at first use, loaded via ctypes
 """

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nest_gemm", "fused_chain", "flash_decode", "flash_decode_proj",
-           "flash_attention", "mamba_scan", "empty")
+           "flash_attention", "flash_attention_bwd", "mamba_scan",
+           "mamba_scan_bwd", "empty")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,7 +16,14 @@ batch in one launch.
 
 ``flash_attention(q, k, v, ...)`` launches ``csrc/flash_attention.cu``:
 prefill attention over [BH, S, d], causal or full, scale ``d**-0.5``,
-fp32 or bf16 inputs with fp32 sums.
+fp32 or bf16 inputs with fp32 sums; with ``return_lse`` it also writes
+each row's log-sum-exp, for the backward.
+
+``flash_attention_bwd(q, k, v, o, lse, do, ...)`` launches
+``csrc/flash_attention_bwd.cu``: the gradients (dq, dk, dv) of that
+attention, from its output and log-sum-exp (the TPU kernel has no
+backward; the JAX package differentiates its plain train-path attention
+by autodiff).
 
 Each kernel has its own launch counter.
 """
@@ -33,6 +40,7 @@ from repro_torch.kernels import build
 launches = 0                 # flash_decode
 proj_launches = 0            # flash_decode_proj
 attention_launches = 0       # flash_attention
+attention_bwd_launches = 0   # flash_attention_bwd
 
 #: shared memory a flash_decode_proj block allows itself (within the
 #: 227 KB a block can have)
@@ -50,6 +58,7 @@ MAX_HEAD_DIM = 256
 _FN: dict = {}
 _PROJ_FN = None
 _ATTN_FN = None
+_ATTN_BWD_FN = None
 
 
 #: flash_decode's C entry for each operand type
@@ -180,20 +189,16 @@ def _attn_fn():
     global _ATTN_FN
     if _ATTN_FN is None:
         fn = build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _ATTN_FN = fn
     return _ATTN_FN
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    kv_len: int | None = None) -> torch.Tensor:
-    """q [BH, S, d], k and v [BH, S_kv, d] on the card, all float32 or all
-    bfloat16; returns [BH, S, d] in their dtype, scaled by ``d**-0.5``.
-    Keys at or past ``kv_len`` (default S_kv) are masked."""
-    global attention_launches
+def _check_attention(q, k, v, kv_len):
+    """The checks both attention kernels make; returns kv_len (default
+    S_kv)."""
     dtype = q.dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
@@ -214,12 +219,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = sk if kv_len is None else kv_len
     if not 0 <= kv_len <= sk:
         raise ValueError(f"kv_len {kv_len} outside 0..{sk}")
+    return kv_len
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_len: int | None = None,
+                    return_lse: bool = False):
+    """q [BH, S, d], k and v [BH, S_kv, d] on the card, all float32 or all
+    bfloat16; returns [BH, S, d] in their dtype, scaled by ``d**-0.5``.
+    Keys at or past ``kv_len`` (default S_kv) are masked.  With
+    ``return_lse`` returns (out, lse), lse [BH, S] fp32 each row's
+    log-sum-exp of its scaled scores (+inf where every key is masked);
+    ``out`` is the same either way."""
+    global attention_launches
+    kv_len = _check_attention(q, k, v, kv_len)
+    bh, s, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         err = _attn_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), bh, s, sk, d, kv_len, int(causal),
-                         int(dtype == torch.bfloat16), d ** -0.5,
-                         build.stream_handle())
+                         out.data_ptr(), None if lse is None else
+                         lse.data_ptr(), bh, s, k.shape[1], d, kv_len,
+                         int(causal), int(q.dtype == torch.bfloat16),
+                         d ** -0.5, build.stream_handle())
     build.raise_on_error(err, "flash_attention")
     attention_launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _attn_bwd_fn():
+    global _ATTN_BWD_FN
+    if _ATTN_BWD_FN is None:
+        fn = build.load("flash_attention_bwd").flash_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ATTN_BWD_FN = fn
+    return _ATTN_BWD_FN
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, kv_len: int | None = None):
+    """The gradients of :func:`flash_attention`: q, k, v as it took them,
+    its output ``o`` and log-sum-exp ``lse`` [BH, S] fp32, and the
+    output's gradient ``do`` (o's shape and dtype), on the card; returns
+    (dq, dk, dv) in the inputs' dtype.  Two launches (dQ with D =
+    rowsum(dO * O), then dK and dV), counted as one call."""
+    global attention_bwd_launches
+    kv_len = _check_attention(q, k, v, kv_len)
+    build.check_operand(o, "o", 3, q.dtype)
+    build.check_operand(do, "do", 3, q.dtype)
+    build.check_operand(lse, "lse", 2)
+    bh, s, d = q.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (bh, s):
+        raise ValueError(f"shapes q {tuple(q.shape)}, o {tuple(o.shape)}, "
+                         f"do {tuple(do.shape)}, lse {tuple(lse.shape)} do "
+                         f"not match")
+    if len({t.device for t in (q, k, v, o, lse, do)}) != 1:
+        raise ValueError("q, k, v, o, lse and do must share one device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _attn_bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             dsum.data_ptr(), bh, s, k.shape[1], d, kv_len,
+                             int(causal), int(q.dtype == torch.bfloat16),
+                             d ** -0.5, build.stream_handle())
+    build.raise_on_error(err, "flash_attention_bwd")
+    attention_bwd_launches += 1
+    return dq, dk, dv

@@ -6,6 +6,13 @@ hand-written CUDA kernel.
 ``y_t = sum_n c_t[n] * h_t[:, n]``, each state element held by one
 thread for the whole sequence (the TPU kernel it replaces is
 ``repro/kernels/mamba_scan.py``).  Returns (y [B, L, D], h_last [B, D, N]).
+
+``mamba_scan_bwd(da, dbx, c, h0, dy, dh_last)`` launches
+``csrc/mamba_scan_bwd.cu``: the gradients (dda, ddbx, dc, dh0) by the
+reverse recurrence, over states replayed from checkpoints the kernel
+stores itself, with dc's sum over D in a fixed order (the TPU kernel has
+no backward; the JAX package differentiates its chunked scan by
+autodiff).
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ from repro_torch.kernels import build
 STATE_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
 
 #: kernel launches since the count was last set to 0
-launches = 0
+launches = 0                 # mamba_scan
+bwd_launches = 0             # mamba_scan_bwd
 
 _FN = None
+_BWD = None
 
 
 def _fn():
@@ -37,11 +46,8 @@ def _fn():
     return _FN
 
 
-def mamba_scan(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
-               h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N], fp32 on the card,
-    N in :data:`STATE_WIDTHS`; returns (y [B, L, D], h_last [B, D, N])."""
-    global launches
+def _check(da, dbx, c, h0):
+    """The checks both scan kernels make; returns (B, L, D, N)."""
     build.check_operand(da, "da", 4)
     build.check_operand(dbx, "dbx", 4)
     build.check_operand(c, "c", 3)
@@ -56,6 +62,15 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
         raise ValueError("da, dbx, c and h0 must share one device")
     if n not in STATE_WIDTHS:
         raise ValueError(f"mamba_scan takes N in {STATE_WIDTHS}, got {n}")
+    return b, seq, d, n
+
+
+def mamba_scan(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
+               h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N], fp32 on the card,
+    N in :data:`STATE_WIDTHS`; returns (y [B, L, D], h_last [B, D, N])."""
+    global launches
+    b, seq, d, n = _check(da, dbx, c, h0)
     y = torch.empty((b, seq, d), dtype=torch.float32, device=da.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=da.device)
     with torch.cuda.device(da.device):
@@ -65,3 +80,59 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
     build.raise_on_error(err, "mamba_scan")
     launches += 1
     return y, h_last
+
+
+def _bwd():
+    global _BWD
+    if _BWD is None:
+        lib = build.load("mamba_scan_bwd")
+        fn = lib.mamba_scan_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.mamba_scan_bwd_blocks.argtypes = [ctypes.c_int] * 2
+        lib.mamba_scan_bwd_blocks.restype = ctypes.c_int
+        lib.mamba_scan_bwd_chunk.restype = ctypes.c_int
+        _BWD = lib
+    return _BWD
+
+
+def mamba_scan_bwd(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
+                   h0: torch.Tensor, dy: torch.Tensor,
+                   dh_last: torch.Tensor | None = None):
+    """The gradients of :func:`mamba_scan`: its inputs, and the gradients
+    of its outputs, dy [B, L, D] and dh_last [B, D, N] (None: zero), fp32
+    on the card; returns (dda, ddbx [B, L, D, N], dc [B, L, N], dh0 [B, D,
+    N]).  Two launches (the scan, then dc's partials added in block
+    order), counted as one call; two calls give the same bits."""
+    global bwd_launches
+    b, seq, d, n = _check(da, dbx, c, h0)
+    build.check_operand(dy, "dy", 3)
+    if tuple(dy.shape) != (b, seq, d):
+        raise ValueError(f"dy {tuple(dy.shape)} is not {(b, seq, d)}")
+    if dh_last is not None:
+        build.check_operand(dh_last, "dh_last", 3)
+        if tuple(dh_last.shape) != (b, d, n):
+            raise ValueError(f"dh_last {tuple(dh_last.shape)} is not "
+                             f"{(b, d, n)}")
+    if len({t.device for t in (da, dy) + (() if dh_last is None
+                                          else (dh_last,))}) != 1:
+        raise ValueError("the inputs and gradients must share one device")
+    lib = _bwd()
+    chunk = lib.mamba_scan_bwd_chunk()
+    blocks = lib.mamba_scan_bwd_blocks(d, n)
+    kw = dict(dtype=torch.float32, device=da.device)
+    dda, ddbx = torch.empty_like(da), torch.empty_like(dbx)
+    dc, dh0 = torch.empty((b, seq, n), **kw), torch.empty((b, d, n), **kw)
+    ckpt = torch.empty((b, -(-seq // chunk), d, n), **kw)
+    dc_part = torch.empty((b, blocks, seq, n), **kw)
+    with torch.cuda.device(da.device):
+        err = lib.mamba_scan_bwd_f32(
+            da.data_ptr(), dbx.data_ptr(), c.data_ptr(), h0.data_ptr(),
+            dy.data_ptr(), None if dh_last is None else dh_last.data_ptr(),
+            dda.data_ptr(), ddbx.data_ptr(), dc.data_ptr(), dh0.data_ptr(),
+            ckpt.data_ptr(), dc_part.data_ptr(), b, seq, d, n,
+            build.stream_handle())
+    build.raise_on_error(err, "mamba_scan_bwd")
+    bwd_launches += 1
+    return dda, ddbx, dc, dh0

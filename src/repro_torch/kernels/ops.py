@@ -7,6 +7,17 @@ given lies on the CPU -- the counterpart of the JAX package's Pallas
 interpret mode.  The kernels mask ragged edges themselves; only
 ``flash_attention`` pads, as the JAX package's wrapper does, so that
 both versions see the same blocks.
+
+``flash_attention`` and ``mamba_scan`` carry gradients.  When one is
+wanted (grad mode on and an input that requires it) the raw kernel call
+-- and only it -- runs inside a ``torch.autograd.Function``: forward by
+the kernel (its plain version on the CPU), backward by the backward
+kernel (``flash_attention_bwd``, ``mamba_scan_bwd``; on the CPU their
+plain versions).  The head folding, padding and cutting around it are
+plain torch ops that autograd differentiates.  There is no fallback: a
+backward kernel that fails to build or launch raises.  Without a
+gradient the wrappers run exactly as before, the forward kernels'
+results bit for bit the same.
 """
 
 from __future__ import annotations
@@ -22,6 +33,10 @@ from repro_torch.kernels import ref
 
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def nest_gemm(x, w, *, bk=128, out_block_t=False, act=None):
@@ -130,13 +145,93 @@ def flash_attention(q, k, v, *, causal=True, bq=128, bkv=128):
         return x.transpose(1, 2).reshape(b * h, x.shape[1], d)
     qf = _pad_rows(fold(q), bq_)
     kf, vf = _pad_rows(fold(k), bkv_), _pad_rows(fold(v), bkv_)
-    if _on_cpu(q, k, v):
-        o = ref.flash_attention_ref(qf, kf, vf, causal=causal, bq=bq_,
-                                    bkv=bkv_, kv_len=sk)
-    else:
-        o = _fa.flash_attention(qf.contiguous(), kf.contiguous(),
-                                vf.contiguous(), causal=causal, kv_len=sk)
+    if not _on_cpu(qf, kf, vf):
+        qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
+    o = attention_core(qf, kf, vf, causal=causal, bq=bq_, bkv=bkv_,
+                       kv_len=sk)
     return o[:, :s].reshape(b, h, s, d).transpose(1, 2)[..., :dv]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The folded, padded attention call with its gradient: the forward
+    saves its output and log-sum-exp, the backward reads them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bkv, kv_len):
+        if _on_cpu(q, k, v):
+            o, lse = ref.flash_attention_ref(q, k, v, causal=causal, bq=bq,
+                                             bkv=bkv, kv_len=kv_len,
+                                             return_lse=True)
+        else:
+            o, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                         kv_len=kv_len, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.kv_len = causal, kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _on_cpu(q, k, v):
+            grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                causal=ctx.causal,
+                                                kv_len=ctx.kv_len)
+        else:
+            grads = _fa.flash_attention_bwd(q, k, v, o, lse,
+                                            do.contiguous(),
+                                            causal=ctx.causal,
+                                            kv_len=ctx.kv_len)
+        return (*grads, None, None, None, None)
+
+
+def attention_core(qf, kf, vf, *, causal, bq, bkv, kv_len):
+    """The attention call on folded, padded [BH, S, D] operands (the
+    kernel's own layout): through :class:`_FlashAttention` when a
+    gradient is wanted, else the kernel (the plain version on the
+    CPU)."""
+    if _wants_grad(qf, kf, vf):
+        return _FlashAttention.apply(qf, kf, vf, causal, bq, bkv, kv_len)
+    if _on_cpu(qf, kf, vf):
+        return ref.flash_attention_ref(qf, kf, vf, causal=causal, bq=bq,
+                                       bkv=bkv, kv_len=kv_len)
+    return _fa.flash_attention(qf, kf, vf, causal=causal, kv_len=kv_len)
+
+
+class _MambaScan(torch.autograd.Function):
+    """The scan with its gradient: the backward replays the states from
+    the saved inputs.  An output whose gradient is not wanted (h_last
+    when only y is used) reaches the backward as None, not zeros."""
+
+    @staticmethod
+    def forward(ctx, da, dbx, c, h0):
+        ctx.set_materialize_grads(False)
+        if _on_cpu(da, dbx, c, h0):
+            y, h_last = ref.mamba_scan_ref(da, dbx, c, h0)
+        else:
+            y, h_last = _ms.mamba_scan(da, dbx, c, h0)
+        ctx.save_for_backward(da, dbx, c, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        da, dbx, c, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = da.new_zeros(da.shape[:3])
+        if _on_cpu(da, dbx, c, h0):
+            return ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last)
+        return _ms.mamba_scan_bwd(
+            da, dbx, c, h0, dy.contiguous(),
+            None if dh_last is None else dh_last.contiguous())
+
+
+def scan_core(da, dbx, c, h0):
+    """The scan call: through :class:`_MambaScan` when a gradient is
+    wanted, else the kernel (the plain version on the CPU)."""
+    if _wants_grad(da, dbx, c, h0):
+        return _MambaScan.apply(da, dbx, c, h0)
+    if _on_cpu(da, dbx, c, h0):
+        return ref.mamba_scan_ref(da, dbx, c, h0)
+    return _ms.mamba_scan(da, dbx, c, h0)
 
 
 def mamba_scan(da, dbx, c, h0):
@@ -147,7 +242,7 @@ def mamba_scan(da, dbx, c, h0):
     a width below 64 that is not one is padded with zeros (an inert
     state) to the next, and one past 64 is refused."""
     if _on_cpu(da, dbx, c, h0):
-        return ref.mamba_scan_ref(da, dbx, c, h0)
+        return scan_core(da, dbx, c, h0)
     n = da.shape[-1]
     n_pad = next((w for w in _ms.STATE_WIDTHS if w >= n), n)
     if n_pad != n:
@@ -155,6 +250,6 @@ def mamba_scan(da, dbx, c, h0):
             return torch.cat([x, x.new_zeros((*x.shape[:-1], n_pad - n))],
                              -1)
         da, dbx, c, h0 = pad(da), pad(dbx), pad(c), pad(h0)
-    y, h_last = _ms.mamba_scan(da.contiguous(), dbx.contiguous(),
-                               c.contiguous(), h0.contiguous())
+    y, h_last = scan_core(da.contiguous(), dbx.contiguous(), c.contiguous(),
+                          h0.contiguous())
     return y, h_last[..., :n]

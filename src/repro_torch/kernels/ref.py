@@ -52,6 +52,12 @@ FUSED_ACT_FNS = {
 }
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The type the attention and scan versions sum in: fp32, or fp64 for
+    fp64 inputs (``torch.autograd.gradcheck``'s)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _rnd(x: int) -> int:
     """Largest power of two <= x (min 8): the JAX wrappers' block sizing
     on small shapes (``repro.kernels.ops._rnd``)."""
@@ -175,29 +181,34 @@ def flash_decode_proj_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, bq: int = 128,
-                        bkv: int = 128,
-                        kv_len: int | None = None) -> torch.Tensor:
+                        bkv: int = 128, kv_len: int | None = None,
+                        return_lse: bool = False):
     """Prefill attention over [BH, S, d] by the online-softmax recurrence
     over KV blocks of ``bkv`` for each query block of ``bq``: scale
     ``d**-0.5``, KV blocks strictly after a causal query block skipped,
     key positions at or past ``kv_len`` masked, and p = 0 wherever a score
     is masked.  With bf16 inputs p is rounded to v's dtype before the PV
-    product; sums run in fp32 and the result takes q's dtype."""
+    product; sums run in fp32 and the result takes q's dtype.  With
+    ``return_lse`` also each row's log-sum-exp of its scaled scores, [BH,
+    S] fp32 (``m + log(l)``; +inf for a row with every key masked, so
+    that the backward's ``exp(s - lse)`` is 0 there)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     kv_len = sk if kv_len is None else kv_len
     scale = d ** -0.5
-    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
-    out = torch.empty((bh, sq, v.shape[2]), dtype=torch.float32,
+    f32 = _acc(q.dtype)
+    qf, kf, vf = (t.to(f32) for t in (q, k, v))
+    out = torch.empty((bh, sq, v.shape[2]), dtype=f32,
                       device=q.device)
+    lse = torch.empty((bh, sq), dtype=f32, device=q.device)
     for q0 in range(0, sq, bq):
         qb = qf[:, q0:q0 + bq]
         rows = qb.shape[1]
         qpos = q0 + torch.arange(rows, device=q.device).reshape(-1, 1)
-        m = torch.full((bh, rows, 1), NEG_INF, dtype=torch.float32,
+        m = torch.full((bh, rows, 1), NEG_INF, dtype=f32,
                        device=q.device)
-        l = torch.zeros((bh, rows, 1), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((bh, rows, v.shape[2]), dtype=torch.float32,
+        l = torch.zeros((bh, rows, 1), dtype=f32, device=q.device)
+        acc = torch.zeros((bh, rows, v.shape[2]), dtype=f32,
                           device=q.device)
         for k0 in range(0, sk, bkv):
             if causal and k0 > q0 + bq - 1:
@@ -214,10 +225,51 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             torch.exp(s - m_new))
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + p.to(v.dtype).to(torch.float32) @ vb
+            acc = acc * alpha + p.to(v.dtype).to(f32) @ vb
             m = m_new
         out[:, q0:q0 + rows] = acc / torch.clamp_min(l, 1e-30)
+        lse[:, q0:q0 + rows] = torch.where(
+            l > 0, m + torch.log(l), torch.full_like(l, float("inf")))[..., 0]
+    if return_lse:
+        return out.to(q.dtype), lse
     return out.to(q.dtype)
+
+
+def _attention_keep(sq: int, sk: int, causal: bool, kv_len: int,
+                    device) -> torch.Tensor:
+    """[sq, sk]: which (query, key) pairs attend (key below ``kv_len``,
+    and at or before the query when causal)."""
+    qpos = torch.arange(sq, device=device).reshape(-1, 1)
+    kpos = torch.arange(sk, device=device).reshape(1, -1)
+    keep = (kpos < kv_len).expand(sq, sk)
+    return keep & (kpos <= qpos) if causal else keep
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            kv_len: int | None = None):
+    """The gradients of :func:`flash_attention_ref` by the explicit
+    formulas, in fp32: ``P = exp(S * scale - lse)`` on the kept pairs (0
+    elsewhere) from the forward's log-sum-exp ``lse`` [BH, S], ``D =
+    rowsum(dO * O)``, ``dV = P^T dO``, ``dS = P * (dO V^T - D)``, ``dQ =
+    dS K * scale`` and ``dK = dS^T Q * scale``.  q, o, do [BH, S, d], k, v
+    [BH, S_kv, d]; returns (dq, dk, dv), each in its input's dtype.  A row
+    with every key masked has P = 0 and gives zero gradients."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    scale = d ** -0.5
+    f32 = _acc(q.dtype)
+    qf, kf, vf, of, dof = (t.to(f32) for t in (q, k, v, o, do))
+    keep = _attention_keep(sq, sk, causal, kv_len, q.device)
+    s = (qf @ kf.transpose(1, 2)) * scale
+    p = torch.where(keep, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dd = (dof * of).sum(-1, keepdim=True)
+    dv = p.transpose(1, 2) @ dof
+    ds = p * (dof @ vf.transpose(1, 2) - dd)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(1, 2) @ qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
@@ -225,10 +277,41 @@ def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
     """The selective scan step by step: ``h = da_t * h + dbx_t`` over
     [B, D, N], ``y_t = sum_n c_t[n] * h[:, n]``.  da, dbx [B, L, D, N],
     c [B, L, N], h0 [B, D, N]; returns (y [B, L, D], h_last [B, D, N])."""
-    b, seq, d, _ = da.shape
-    h = h0.to(torch.float32)
-    y = torch.empty((b, seq, d), dtype=torch.float32, device=da.device)
+    f32 = _acc(da.dtype)
+    h = h0.to(f32)
+    # the steps unbound and the outputs stacked, not indexed and written
+    # in place: differentiated by autograd, a step's slice then costs no
+    # full-size gradient (one stack for all of them)
+    ys = []
+    for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1), c.unbind(1)):
+        h = da_t.to(f32) * h + dbx_t.to(f32)
+        ys.append((h * c_t[:, None, :].to(f32)).sum(dim=-1))
+    return torch.stack(ys, 1), h
+
+
+def mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last=None):
+    """The gradients of :func:`mamba_scan_ref` by the reverse scan, in
+    fp32: with ``g_t`` the gradient reaching ``h_t`` (``dh_last`` and
+    ``c_L * dy_L`` at the last step), ``g_t = c_t * dy_t + da_{t+1} *
+    g_{t+1}``, ``ddbx_t = g_t``, ``dda_t = g_t * h_{t-1}``, ``dc_t =
+    sum_d dy_t * h_t`` and ``dh0 = da_1 * g_1``.  The states are replayed
+    forward first (as the forward computes them).  dy [B, L, D], dh_last
+    [B, D, N] or None (zero); returns (dda, ddbx, dc, dh0)."""
+    b, seq, d, n = da.shape
+    f32 = _acc(da.dtype)
+    hs = [h0.to(f32)]
     for t in range(seq):
-        h = da[:, t].to(torch.float32) * h + dbx[:, t].to(torch.float32)
-        y[:, t] = (h * c[:, t, None, :].to(torch.float32)).sum(dim=-1)
-    return y, h
+        hs.append(da[:, t].to(f32) * hs[-1] + dbx[:, t].to(f32))
+    dda = torch.empty((b, seq, d, n), dtype=f32, device=da.device)
+    ddbx = torch.empty_like(dda)
+    dc = torch.empty((b, seq, n), dtype=f32, device=da.device)
+    g_next = (torch.zeros_like(hs[0]) if dh_last is None
+              else dh_last.to(f32))
+    for t in range(seq - 1, -1, -1):
+        dy_t = dy[:, t].to(f32)[..., None]
+        g = c[:, t, None, :].to(f32) * dy_t + g_next
+        ddbx[:, t] = g
+        dda[:, t] = g * hs[t]
+        dc[:, t] = (dy_t * hs[t + 1]).sum(dim=1)
+        g_next = da[:, t].to(f32) * g
+    return dda, ddbx, dc, g_next

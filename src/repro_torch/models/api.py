@@ -1,14 +1,15 @@
 """Unified model facade: ``build_model(cfg)`` -> :class:`Model` with
-prefill / decode_step, the decode cache's shapes, the parameter count and
-the weights bridge from the JAX package (counterpart of
-``repro/models/api.py``).
+loss / prefill / decode_step, the decode cache's shapes, the parameter
+count and the weights bridge to and from the JAX package's pytree
+(counterpart of ``repro/models/api.py``).
 
 A model lives on one device, ``"cuda"`` by default (raising without a
 card); its parameters are drawn from the caller's ``torch.Generator``
-(or one seeded 0 on that device).  Every family of the JAX package is
-ported: ``dense``, ``moe`` (with MLA and leading dense layers), ``vlm``,
-``ssm`` (Mamba-1), ``hybrid`` (Mamba-2 with a shared attention block) and
-``encdec``; ``loss`` waits for training (ROADMAP A.9(c)).
+(or one seeded 0 on that device) and made without ``requires_grad``:
+a trainer turns it on (``train.trainer.make_train_step`` does).  Every
+family of the JAX package is ported: ``dense``, ``moe`` (with MLA and
+leading dense layers), ``vlm``, ``ssm`` (Mamba-1), ``hybrid`` (Mamba-2
+with a shared attention block) and ``encdec``.
 """
 
 from __future__ import annotations
@@ -52,9 +53,38 @@ class Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return DTYPES[self.cfg.dtype]
 
-    # ---------------- serving ----------------
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
+
+    # ---------------- training ----------------
+    def loss(self, batch: dict, remat: bool = True):
+        """Next-token cross-entropy of ``batch`` (``tokens`` [B, S], and
+        ``patches`` [B, P, d] for a vlm, ``frames`` [B, T, d] for encdec;
+        numpy arrays or tensors), as the JAX package's ``Model.loss``:
+        the logits of a vlm's prefix cut, fp32 log-softmax, ``loss = nll
+        + 0.01 * aux`` with aux the MoE layers' load-balancing loss.
+        ``remat`` rematerialises each layer's activations in the backward
+        where the JAX package puts ``jax.checkpoint``.  Returns (loss,
+        {"nll", "aux", "perplexity"}), 0-d fp32 tensors."""
+        tokens = self._tokens(batch["tokens"])
+        kw = {}
+        if batch.get("patches") is not None:
+            kw["prefix_embeds"] = torch.as_tensor(batch["patches"],
+                                                  device=self.device)
+        if batch.get("frames") is not None:
+            kw["frames"] = torch.as_tensor(batch["frames"],
+                                           device=self.device)
+        logits, aux = self.net(tokens, "train", remat=remat, **kw)
+        if self.cfg.family == "vlm" and "prefix_embeds" in kw:
+            logits = logits[:, kw["prefix_embeds"].shape[1]:]
+        logits = logits[:, :-1].float()
+        logz = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
+        nll = (logz - gold).mean()
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux,
+                                  "perplexity": torch.exp(nll)}
+
+    # ---------------- serving ----------------
 
     @torch.no_grad()
     def prefill(self, tokens, prefix_embeds=None, frames=None):
@@ -149,6 +179,21 @@ class Model(nn.Module):
         ``dense_layers`` by index, every layout kept as it is)."""
         common.load_numpy(self.net, tree)
         return self
+
+    def numpy_tree(self) -> dict:
+        """The parameters as the JAX package's pytree of numpy arrays
+        (``common.nest``: the ``STACKED`` axes restacked); bf16 as fp32,
+        which holds every bf16 value exactly."""
+        return common.nest({n: common.to_numpy(p)
+                            for n, p in self.net.named_parameters()})
+
+    def grad_tree(self) -> dict:
+        """The parameters' gradients in :meth:`numpy_tree`'s layout (zeros
+        for a parameter that has none)."""
+        return common.nest({
+            n: common.to_numpy(torch.zeros_like(p) if p.grad is None
+                               else p.grad)
+            for n, p in self.net.named_parameters()})
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",

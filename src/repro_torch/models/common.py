@@ -205,7 +205,7 @@ def _tensor(arr) -> torch.Tensor:
 STACKED = {"layers", "mamba_layers", "app_norms", "enc_layers", "dec_layers"}
 
 
-def _flatten_numpy(tree, prefix: str = "") -> dict:
+def flatten_tree(tree, prefix: str = "") -> dict:
     """The JAX package's parameter pytree (nested dicts and lists of
     arrays) as ``{dotted name: array}``; the leading axis of a top-level
     :data:`STACKED` entry is unstacked into ``<key>.<i>.<name>``, and a
@@ -214,24 +214,24 @@ def _flatten_numpy(tree, prefix: str = "") -> dict:
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, (list, tuple)):
-            flat.update(_flatten_numpy(dict(enumerate(val)), name + "."))
+            flat.update(flatten_tree(dict(enumerate(val)), name + "."))
         elif isinstance(val, dict):
             if key in STACKED and not prefix:
-                for sub, arr in _flatten_numpy(val).items():
+                for sub, arr in flatten_tree(val).items():
                     for i in range(arr.shape[0]):
                         flat[f"{key}.{i}.{sub}"] = arr[i]
             else:
-                flat.update(_flatten_numpy(val, name + "."))
+                flat.update(flatten_tree(val, name + "."))
         else:
             flat[name] = val
     return flat
 
 
 def load_numpy(module: nn.Module, tree) -> None:
-    """Copy the JAX package's parameter pytree (numpy arrays) into
-    ``module``'s parameters by name, in their layouts (no transposes);
-    raises on a missing, extra or misshapen name."""
-    flat = _flatten_numpy(tree)
+    """Copy the JAX package's parameter pytree (numpy arrays, or tensors
+    on any device) into ``module``'s parameters by name, in their layouts
+    (no transposes); raises on a missing, extra or misshapen name."""
+    flat = flatten_tree(tree)
     params = dict(module.named_parameters())
     if set(flat) != set(params):
         raise KeyError(f"pytree and module differ: missing "
@@ -239,8 +239,56 @@ def load_numpy(module: nn.Module, tree) -> None:
                        f"{sorted(set(flat) - set(params))}")
     with torch.no_grad():
         for name, p in params.items():
-            t = _tensor(flat[name])
+            t = flat[name]
+            t = t if isinstance(t, torch.Tensor) else _tensor(t)
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: pytree shape {tuple(t.shape)}, "
                                  f"module shape {tuple(p.shape)}")
             p.copy_(t)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 (which numpy lacks)
+    as fp32, exactly."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def nest(flat: dict) -> dict:
+    """The inverse of :func:`flatten_tree`: ``{dotted name: array or
+    tensor}`` (a module's names) as the JAX package's pytree.  Under a
+    top-level :data:`STACKED` key the members ``<key>.<i>.<name>`` are
+    stacked on a new leading axis (``np.stack``, or ``torch.stack`` for
+    tensors); any other numbered level (``dense_layers``) becomes a
+    list."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        node = tree
+        *path, last = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    def stack(members):
+        first = members[0]
+        if isinstance(first, dict):
+            return {k: stack([m[k] for m in members]) for k in first}
+        return (torch.stack(members) if isinstance(first, torch.Tensor)
+                else np.stack(members))
+
+    out = {}
+    for key, node in tree.items():
+        node = listify(node)
+        out[key] = (stack(node) if key in STACKED and isinstance(node, list)
+                    else node)
+    return out

@@ -19,13 +19,17 @@ model's dtype it computes what the port computes.
 
 The decode cache is ``{"layers": {"self": (k, v), "cross": (k, v)}}``,
 each head-major per layer: ``self`` [L, B, KVH, S, D], ``cross`` [L, B,
-KVH, frontend_len, D].  Decode updates ``self`` in place.
+KVH, frontend_len, D].  Decode updates ``self`` in place.  In
+``"train"`` mode every encoder and decoder layer runs under
+``torch.utils.checkpoint`` (non-reentrant) when ``remat`` is set, where
+the JAX package checkpoints both scan bodies.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Embed, LayerNorm, Maker,
@@ -80,6 +84,11 @@ class DecoderLayer(EncoderLayer):
         return x, {"self": self_kv, "cross": cross_kv}
 
 
+def _train_layer(layer, x, enc_out):
+    """A decoder layer in training: its new stream, no cache."""
+    return layer(x, "train", enc_out)[0]
+
+
 class EncDec(nn.Module):
     """``encdec_params``, ``encode`` and ``decode_stack``; the output head
     is the tied embedding."""
@@ -95,20 +104,23 @@ class EncDec(nn.Module):
                                         for _ in range(cfg.num_layers))
         self.dec_ln_f = LayerNorm(mk, cfg.d_model)
 
-    def encode(self, frames):
-        """frames [B, T, d] (cast to the model's dtype) -> [B, T, d]."""
+    def encode(self, frames, remat: bool = False):
+        """frames [B, T, d] (cast to the model's dtype) -> [B, T, d]; each
+        layer under ``checkpoint`` with ``remat``."""
         dtype = self.embed.table.dtype
         _, t, d = frames.shape
         x = frames.to(dtype) + sinusoidal_positions(
             t, d, frames.device).to(dtype)
         for layer in self.enc_layers:
-            x = layer(x)
+            x = (checkpoint(layer, x, use_reentrant=False) if remat
+                 else layer(x))
         return self.enc_ln_f(x)
 
     def forward(self, tokens, mode: str, cache=None, position_idx=None,
-                frames=None, prefix_embeds=None):
-        """mode 'prefill' (``frames`` [B, T, d] required) | 'decode';
-        returns (logits, cache)."""
+                frames=None, prefix_embeds=None, remat: bool = True):
+        """mode 'prefill' (``frames`` [B, T, d] required) | 'decode'
+        returns (logits, cache); 'train' (``frames`` required) returns
+        (logits, aux), aux 0."""
         if prefix_embeds is not None:
             raise ValueError(f"{self.cfg.name} takes no prefix embeddings")
         x = self.embed(tokens)
@@ -118,10 +130,17 @@ class EncDec(nn.Module):
             pos_emb = sinusoidal_at(position_idx, d)[:, None]
         else:
             if frames is None:
-                raise ValueError(f"{self.cfg.name} needs frames to prefill")
-            enc_out = self.encode(frames)
+                raise ValueError(f"{self.cfg.name} needs frames to {mode}")
+            enc_out = self.encode(frames, remat and mode == "train")
             pos_emb = sinusoidal_positions(s, d, x.device)[None]
         x = x + pos_emb.to(x.dtype)
+        if mode == "train":
+            for layer in self.dec_layers:
+                x = (checkpoint(_train_layer, layer, x, enc_out,
+                                use_reentrant=False) if remat
+                     else _train_layer(layer, x, enc_out))
+            return (self.embed.unembed(self.dec_ln_f(x)),
+                    x.new_zeros((), dtype=torch.float32))
         new = {"self": ([], []), "cross": ([], [])}
         for i, layer in enumerate(self.dec_layers):
             c = None if cache is None else {

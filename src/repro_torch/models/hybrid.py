@@ -12,7 +12,10 @@ head is always the tied embedding, as the JAX package's
 The decode cache is ``{"mamba": {"conv": [L, B, k-1, di + 2gn], "ssm":
 [L, B, H, P, N] fp32}, "kv": (k, v)}``, the shared block's K/V
 head-major, ``[n_attn, B, KVH, S, D]`` (see ``models.attention``); decode
-updates it in place.
+updates it in place.  In ``"train"`` mode the Mamba-2 blocks run under
+``torch.utils.checkpoint`` (non-reentrant) when ``remat`` is set, and the
+shared block does not, as the JAX package puts ``jax.checkpoint`` on its
+Mamba scan body only.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import Embed, Maker, RMSNorm
 from repro_torch.models.mlp import MLP
+from repro_torch.models.ssm_lm import run_blocks
 
 
 class MambaBlock(nn.Module):
@@ -79,8 +83,9 @@ class Hybrid(nn.Module):
         self.ln_f = RMSNorm(mk, cfg.d_model)
 
     def forward(self, tokens, mode: str, cache=None, position_idx=None,
-                prefix_embeds=None):
-        """mode 'prefill' | 'decode'; returns (logits, cache)."""
+                prefix_embeds=None, remat: bool = True):
+        """mode 'prefill' | 'decode' returns (logits, cache); 'train'
+        returns (logits, aux), aux 0."""
         if prefix_embeds is not None:
             raise ValueError(f"{self.cfg.name} takes no prefix embeddings")
         x = self.embed(tokens)
@@ -90,6 +95,8 @@ class Hybrid(nn.Module):
         else:
             positions = torch.arange(s, device=x.device).expand(b, s)
         every = self.cfg.attn_every
+        if mode == "train":
+            return self._train(x, positions, remat)
         convs, states, keys, values = [], [], [], []
         for i, layer in enumerate(self.mamba_layers):
             c = None if cache is None else {
@@ -116,3 +123,13 @@ class Hybrid(nn.Module):
         return logits, {"mamba": {"conv": torch.stack(convs),
                                   "ssm": torch.stack(states)},
                         "kv": (torch.stack(keys), torch.stack(values))}
+
+    def _train(self, x, positions, remat: bool):
+        every = self.cfg.attn_every
+        blocks = self.mamba_layers
+        for app, norm in enumerate(self.app_norms):
+            x = run_blocks(blocks[app * every:(app + 1) * every], x, remat)
+            x, _ = self.shared(x, norm, positions, "train")
+        x = run_blocks(blocks[len(self.app_norms) * every:], x, remat)
+        return (self.embed.unembed(self.ln_f(x)),
+                x.new_zeros((), dtype=torch.float32))

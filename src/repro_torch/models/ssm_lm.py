@@ -3,15 +3,33 @@ another (counterpart of ``repro/models/ssm_lm.py``).
 
 The state cache is ``{"layers": {"conv": [L, B, k-1, di], "ssm": [L, B,
 di, n] fp32}}``, the JAX package's layout; decode updates it in place.
+In ``"train"`` mode every block runs under ``torch.utils.checkpoint``
+(non-reentrant) when ``remat`` is set, as the JAX package checkpoints
+its scan body.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.common import Embed, Maker, RMSNorm
+
+
+def block_output(block, x):
+    """A residual block's new stream, its state dropped (training)."""
+    return block(x)[0]
+
+
+def run_blocks(blocks, x, remat: bool):
+    """``blocks`` in turn in training, each under ``checkpoint`` with
+    ``remat``."""
+    for block in blocks:
+        x = (checkpoint(block_output, block, x, use_reentrant=False)
+             if remat else block_output(block, x))
+    return x
 
 
 class SsmBlock(nn.Module):
@@ -40,12 +58,17 @@ class SsmLM(nn.Module):
         self.ln_f = RMSNorm(mk, cfg.d_model)
 
     def forward(self, tokens, mode: str, cache=None, position_idx=None,
-                prefix_embeds=None):
-        """mode 'prefill' | 'decode'; returns (logits, cache).  The
-        recurrence needs no positions."""
+                prefix_embeds=None, remat: bool = True):
+        """mode 'prefill' | 'decode' returns (logits, cache); 'train'
+        returns (logits, aux), aux 0.  The recurrence needs no
+        positions."""
         if prefix_embeds is not None:
             raise ValueError(f"{self.cfg.name} takes no prefix embeddings")
         x = self.embed(tokens)
+        if mode == "train":
+            x = run_blocks(self.layers, x, remat)
+            return (self.embed.unembed(self.ln_f(x)),
+                    x.new_zeros((), dtype=torch.float32))
         convs, states = [], []
         for i, layer in enumerate(self.layers):
             c = None if cache is None else {

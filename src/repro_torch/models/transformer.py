@@ -2,23 +2,28 @@
 families (counterpart of ``repro/models/transformer.py``).
 
 The layers are a ``ModuleList`` run one after another, where the JAX
-package scans a stacked pytree; the JAX package's ``remat`` and its
-``REPRO_*`` toggles change no result and have no counterpart.  A layer's
+package scans a stacked pytree.  In ``"train"`` mode each layer of that
+stack runs under ``torch.utils.checkpoint`` (non-reentrant) when
+``remat`` is set, where the JAX package puts ``jax.checkpoint`` on its
+scan body: the leading dense layers, outside its scan, are not
+rematerialised.  The JAX package's ``REPRO_*`` toggles change no result
+and have no counterpart.  A layer's
 attention is GQA or MLA, its feed-forward an MLP or an MoE; the first
 ``first_k_dense`` layers (``dense_layers``) take an MLP of ``dense_d_ff``
 whatever the rest take.  The decode cache is ``{"layers": (a, b)}``, plus
 ``"dense"`` for the leading dense layers, each stacked over its layers:
 GQA's K and V ``[L, B, KVH, S, D]`` (head-major per layer, see
 ``models.attention``), MLA's latent ``[L, B, S, kvr]`` and rope part
-``[L, B, S, dr]``; decode updates it in place.  The MoE's load-balancing
-loss is only for training, which the port does not have yet: serving
-drops it.
+``[L, B, S, dr]``; decode updates it in place.  Every layer returns the
+MoE's load-balancing loss (None for an MLP layer); ``"train"`` mode
+returns their sum beside the logits, and serving drops it.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import Dense, Embed, Maker, RMSNorm
@@ -49,7 +54,8 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, positions, mode: str, cache=None,
                 position_idx=None):
-        """mode 'prefill' | 'decode'; returns (x, layer cache)."""
+        """mode 'train' | 'prefill' | 'decode'; returns (x, layer cache,
+        the MoE's aux loss, fp32; None for an MLP layer)."""
         h = self.ln_attn(x)
         if mode == "decode":
             a, new_cache = self.attn.decode_attention(
@@ -58,8 +64,17 @@ class DecoderLayer(nn.Module):
             a, new_cache = self.attn.self_attention(h, positions)
         x = x + a
         h = self.ln_mlp(x)
-        f = self.mlp(h) if self.moe is None else self.moe(h)[0]
-        return x + f, new_cache
+        if self.moe is None:
+            f, aux = self.mlp(h), None
+        else:
+            f, aux = self.moe(h)
+        return x + f, new_cache, aux
+
+
+def _train_layer(layer, x, positions):
+    """A layer in training: (x, aux), no cache."""
+    x, _, aux = layer(x, positions, "train")
+    return x, aux
 
 
 def _run(layers, x, positions, mode, cache, position_idx):
@@ -68,7 +83,7 @@ def _run(layers, x, positions, mode, cache, position_idx):
     new = ([], [])
     for i, layer in enumerate(layers):
         c = None if cache is None else (cache[0][i], cache[1][i])
-        x, nc = layer(x, positions, mode, c, position_idx)
+        x, nc, _ = layer(x, positions, mode, c, position_idx)
         for acc, t in zip(new, nc):
             acc.append(t)
     if mode == "decode":
@@ -94,11 +109,12 @@ class Decoder(nn.Module):
                      Dense(mk, cfg.d_model, cfg.vocab_size, scale=0.02))
 
     def forward(self, tokens, mode: str, cache=None, position_idx=None,
-                prefix_embeds=None):
-        """mode 'prefill' | 'decode'; returns (logits, cache).  tokens
+                prefix_embeds=None, remat: bool = True):
+        """mode 'prefill' | 'decode' returns (logits, cache); 'train'
+        returns (logits, aux), aux the layers' MoE losses summed.  tokens
         [B, S] (S == 1 to decode); position_idx [B] decode positions;
         prefix_embeds [B, P, d] (vlm) are put before the tokens at
-        prefill."""
+        prefill and in training."""
         x = self.embed(tokens)
         if prefix_embeds is not None and mode != "decode":
             x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
@@ -107,6 +123,8 @@ class Decoder(nn.Module):
             positions = position_idx[:, None]
         else:
             positions = torch.arange(s, device=x.device).expand(b, s)
+        if mode == "train":
+            return self._train(x, positions, remat)
         new_cache = {}
         if len(self.dense_layers):
             x, new_cache["dense"] = _run(
@@ -119,3 +137,17 @@ class Decoder(nn.Module):
         logits = (self.embed.unembed(x) if self.head is None
                   else self.head(x))
         return logits, new_cache
+
+    def _train(self, x, positions, remat: bool):
+        aux = x.new_zeros((), dtype=torch.float32)
+        for i, layer in enumerate((*self.dense_layers, *self.layers)):
+            if remat and i >= len(self.dense_layers):
+                x, a = checkpoint(_train_layer, layer, x, positions,
+                                  use_reentrant=False)
+            else:
+                x, a = _train_layer(layer, x, positions)
+            if a is not None:
+                aux = aux + a
+        x = self.ln_f(x)
+        return (self.embed.unembed(x) if self.head is None
+                else self.head(x)), aux

@@ -788,3 +788,175 @@ def test_reduced_model_kernel_path_matches_its_cpu_path(cuda, arch):
     (got, _), n = launched(lambda: card.decode_step(tok, cache_g, pos))
     assert n == a_step
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels and training on the card
+# ---------------------------------------------------------------------------
+
+#: the gradients against their plain versions: |err| within rtol * |want|
+#: + frac * RMS(want).  bf16: both round an fp32 sum to bf16 (one ulp
+#: apart at most); fp32: another sum order
+GRAD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2 ** -7, 1e-3)}
+
+
+def _close_grads(got, want, dtype):
+    rtol, frac = GRAD_TOL[dtype]
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype == dtype
+        g, w = g.float(), w.float()
+        rms = float(w.pow(2).mean().sqrt())
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= rtol * w.abs() + frac * rms).all()), \
+            float((g - w).abs().max())
+
+
+# (bh, s, sk, d, causal, kv_len): block-aligned and ragged sequences,
+# every head-dim template (32 .. 256), a masked key tail, full attention
+# with more keys than queries
+ATTN_BWD_CASES = [
+    (4, 128, 128, 64, True, 128), (2, 96, 96, 32, True, 90),
+    (3, 70, 70, 96, False, 70), (2, 64, 64, 128, True, 50),
+    (2, 40, 72, 192, False, 60), (1, 33, 33, 256, True, 33),
+    (2, 16, 48, 64, False, 48), (2, 200, 200, 48, True, 200),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,sk,d,causal,kv_len", ATTN_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, bh, s, sk, d, causal,
+                                                  kv_len, dtype):
+    """The backward kernel against ``ref.flash_attention_bwd_ref`` on the
+    same inputs (the forward kernel's o and lse); two runs torch.equal;
+    the forward's o the same bits with and without lse."""
+    q = _t(_np((bh, s, d), 2.0), cuda).to(dtype)
+    k, v, do = (_t(_np(shape), cuda).to(dtype) for shape in
+                ((bh, sk, d), (bh, sk, d), (bh, s, d)))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                return_lse=True)
+    assert torch.equal(o, fa.flash_attention(q, k, v, causal=causal,
+                                             kv_len=kv_len))
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          kv_len=kv_len, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    before = fa.attention_bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 kv_len=kv_len)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.attention_bwd_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       kv_len=kv_len)
+    _close_grads(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_masked_rows_give_zero(cuda, dtype):
+    """kv_len 0 masks every key: lse +inf, the output and every gradient
+    zero, none NaN."""
+    q, k, v, do = (_t(_np((2, 40, 64)), cuda).to(dtype) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, kv_len=0,
+                                return_lse=True)
+    assert bool(torch.isinf(lse).all()) and bool((lse > 0).all())
+    assert not o.any()
+    for g in fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                    kv_len=0):
+        assert bool(torch.isfinite(g).all()) and not g.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dh_last", [False, True])
+@pytest.mark.parametrize("b,l,d,n", SCAN_CASES + [
+    (1, 37, 33, 16), (1, 37, 33, 64), (3, 17, 5, 1), (2, 50, 9, 2),
+    (1, 16, 300, 32),
+])
+def test_mamba_scan_bwd_kernel_matches_plain(cuda, b, l, d, n,
+                                             with_dh_last):
+    """The backward kernel against ``ref.mamba_scan_bwd_ref``: dda, ddbx
+    and dh0 bit-equal (rounded multiplies and adds in both, the states
+    replayed bit-equal), dc within fp32 tolerance (its sum over D in
+    another order); two runs torch.equal."""
+    da, dbx, c, h0 = (_t(a, cuda) for a in _scan_inputs(b, l, d, n))
+    dy = _t(_np((b, l, d)), cuda)
+    dh_last = _t(_np((b, d, n)), cuda) if with_dh_last else None
+    before = ms.bwd_launches
+    got = ms.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last)
+    again = ms.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last)
+    torch.cuda.synchronize()
+    assert ms.bwd_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last)
+    for i in (0, 1, 3):
+        assert torch.equal(got[i], want[i]), i
+    torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=2e-4 * d)
+
+
+@pytest.mark.cuda
+def test_ops_gradients_on_the_card_match_the_cpu(cuda):
+    """``ops.flash_attention`` (GQA-repeated heads, ragged lengths padded
+    and cut, MLA's narrower values) and ``ops.mamba_scan`` (N padded 48 ->
+    64, Mamba-2's expanded da) differentiated on the card through the
+    backward kernels, against the CPU's plain forward and backward, fp32:
+    every input's gradient within 2e-4 + 2e-4 * |cpu|."""
+    def grads(fn, arrays, device):
+        ts = [_t(a, device).requires_grad_() for a in arrays]
+        outs = fn(*ts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        seeds = [_t(_np(tuple(o.shape)), device) for o in outs]
+        torch.autograd.backward(outs, seeds)
+        return [t.grad.cpu() for t in ts]
+
+    for fn, arrays in (
+            (lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+             _attn_inputs(2, 45, 3, 64)),
+            (lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+             (_np((2, 20, 2, 48), 0.3), _np((2, 20, 2, 48), 0.3),
+              _np((2, 20, 2, 32)))),
+            (lambda q, k, v: ops.flash_attention(q, k, v, causal=False),
+             (_np((1, 9, 2, 16), 0.3), _np((1, 30, 2, 16), 0.3),
+              _np((1, 30, 2, 16)))),
+            (lambda *a: ops.mamba_scan(*a), _scan_inputs(2, 21, 10, 48)),
+            (lambda *a: ops.mamba_scan(*a)[0], _scan_inputs(2, 21, 10, 64))):
+        state = RNG.bit_generator.state
+        cpu = grads(fn, arrays, "cpu")
+        RNG.bit_generator.state = state
+        card = grads(fn, arrays, cuda)
+        for g, w in zip(card, cpu, strict=True):
+            torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_matches_the_cpu(cuda):
+    """``launch.train`` on a reduced zamba2 (fp32; two applications of
+    the shared block and a tail, N 64), 3 steps on the card through the
+    forward and backward kernels against the same run on the CPU from
+    the same parameters: the losses within 1e-4 relative, every
+    parameter within 2e-4 + 2e-4 * |cpu|; the card's launches exact
+    (``chip_smoke.train_launches``)."""
+    from repro_torch.launch import train as launch_train
+    cs = _chip_smoke()
+    cfg = _zoo_config("zamba2-1.2b")
+    argv = ["--arch", "zamba2-1.2b", "--batch", "2", "--seq", "24",
+            "--steps", "3", "--lr", "1e-3", "--log-every", "100"]
+    cpu, card = (launch_train.Run(launch_train.parse(argv + ["--device", d]),
+                                  cfg) for d in ("cpu", "cuda"))
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.opt_state = launch_train.optlib.init(
+        dict(card.model.net.named_parameters()))
+    losses = {}
+    for name, run in (("cpu", cpu), ("cuda", card)):
+        cs.reset_counts()
+        losses[name] = []
+        run.train(lambda step, m, out=losses[name]: out.append(
+            float(m["loss"])))
+    torch.cuda.synchronize()
+    assert cs.counts() == cs.train_launches(cfg, 3)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    want = cpu.model.state_dict()
+    for name, got in card.model.state_dict().items():
+        torch.testing.assert_close(got.cpu(), want[name], rtol=2e-4,
+                                   atol=2e-4)
