@@ -35,9 +35,12 @@ Phases (any failure exits non-zero; no phase catches its own):
      call without) and flash_attention_bwd, bf16 and fp32, at zamba2's
      [2 * 32, 1024, 64] causal, the backward's library call the backward
      of SDPA (every route, the fastest kept), its bound the five
-     products; mamba_scan_bwd at [2 * 64, 1024, 64, 64] (dda, ddbx and
-     dh0 bit-equal to the plain version, dc within fp32 tolerance); each
-     backward run twice, torch.equal;
+     products; at [2 * 64, 1024, 64, 64] mamba_scan storing its states
+     every 16 steps (y and h_last bit-equal to the call without, the
+     states to the plain version's; timed with and without) and
+     mamba_scan_bwd given those states (dda, ddbx and dh0 bit-equal to
+     the plain version, dc within fp32 tolerance); each backward run
+     twice, torch.equal;
   3. the kernel ops entry point: ``ops.flash_attention`` over gemma-7b's
      heads at 4096 tokens and ``ops.mamba_scan`` at falcon-mamba-7b's
      width, bit-equal to the kernels checked in phase 2;
@@ -2426,12 +2429,16 @@ def check_flash_attention_bwd(timer, gen, dtype) -> tuple[dict, dict]:
     return fwd, row_stats(ms_, plain, lib, nbytes, flops, err, rate)
 
 
-def check_mamba_scan_bwd(timer, gen) -> dict:
-    """mamba_scan_bwd at ``TRAIN_SCAN_SHAPE`` (da a head's scalar
-    expanded, as Mamba-2 gives it; dh_last zero, as the models give it)
-    against its plain version: dda, ddbx and dh0 bit-equal, dc within
-    fp32 tolerance; two runs ``torch.equal``; timed beside its bound (no
-    library call computes the scan)."""
+def check_mamba_scan_bwd(timer, gen) -> tuple[dict, dict]:
+    """At ``TRAIN_SCAN_SHAPE`` (da a head's scalar expanded, as Mamba-2
+    gives it; dh_last zero, as the models give it), as training calls
+    them: the forward storing its states, y and h_last torch.equal to the
+    call without and the states to the plain version's; then
+    mamba_scan_bwd given those states against its plain version (which
+    replays from h0): dda, ddbx and dh0 bit-equal, dc within fp32
+    tolerance, two runs ``torch.equal``.  Each timed beside its bound (no
+    library call computes the scan), the forward also without states.
+    Returns the rows (forward with states, backward)."""
     b, seq, d, n = TRAIN_SCAN_SHAPE
     da = (0.7 + 0.299 * torch.rand(b, seq, device="cuda", generator=gen)
           )[..., None, None].expand(b, seq, d, n).contiguous()
@@ -2439,8 +2446,34 @@ def check_mamba_scan_bwd(timer, gen) -> dict:
     c = torch.randn(b, seq, n, device="cuda", generator=gen)
     h0 = torch.randn(b, d, n, device="cuda", generator=gen) * 0.1
     dy = torch.randn(b, seq, d, device="cuda", generator=gen)
-    got = ms.mamba_scan_bwd(da, dbx, c, h0, dy)
-    again = ms.mamba_scan_bwd(da, dbx, c, h0, dy)
+    y, h_last, states = ms.mamba_scan(da, dbx, c, h0, return_states=True)
+    y0, h0_last = ms.mamba_scan(da, dbx, c, h0)
+    name = (f"mamba_scan {TRAIN_SCAN_SHAPE} (Mamba-2, da per head), "
+            f"states stored")
+    assert torch.equal(y, y0) and torch.equal(h_last, h0_last), \
+        f"{name}: y or h_last differs from the call without states"
+    want_y, _, want_states = ref.mamba_scan_ref(da, dbx, c, h0,
+                                                return_states=True)
+    assert torch.equal(states, want_states), (
+        name, float((states - want_states).abs().max()))
+    err_y = check(name, y, want_y, n)
+    del y0, h0_last, want_y, want_states
+    f_ms = timer(lambda: ms.mamba_scan(da, dbx, c, h0, return_states=True))
+    f_bare = timer(lambda: ms.mamba_scan(da, dbx, c, h0))
+    f_plain = timer(lambda: ref.mamba_scan_ref(da, dbx, c, h0,
+                                               return_states=True), 3)
+    n_states = b * states.shape[1] * d * n
+    f_bytes = 4.0 * (2 * b * seq * d * n + b * seq * n + 2 * b * d * n
+                     + b * seq * d + n_states)
+    f_flops = 4.0 * b * seq * d * n
+    log(f"K6s {name}: y max_err {err_y:.3g}, y and h_last bit-equal to the "
+        f"call without states, states bit-equal | ms {spread(f_ms)} "
+        f"without states {spread(f_bare)} plain {f_plain['ms']:.4f} library "
+        f"none | bound {bound(f_bytes, f_flops)[0]:.4f}")
+    fwd = row_stats(f_ms, f_plain, None, f_bytes, f_flops, err_y)
+
+    got = ms.mamba_scan_bwd(da, dbx, c, h0, dy, states=states)
+    again = ms.mamba_scan_bwd(da, dbx, c, h0, dy, states=states)
     assert all(torch.equal(x, y) for x, y in zip(got, again)), \
         "mamba_scan_bwd: two runs differ"
     del again
@@ -2451,15 +2484,19 @@ def check_mamba_scan_bwd(timer, gen) -> dict:
             name, i, float((got[i] - want[i]).abs().max()))
     err = check_grads(name, [got[2]], [want[2]], torch.float32)
     del got, want
-    ms_ = timer(lambda: ms.mamba_scan_bwd(da, dbx, c, h0, dy))
-    plain = timer(lambda: ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy), 3)
-    nbytes = 4.0 * (4 * b * seq * d * n + 2 * b * seq * n + 2 * b * d * n
-                    + b * seq * d)
+    ms_ = timer(lambda: ms.mamba_scan_bwd(da, dbx, c, h0, dy,
+                                          states=states))
+    plain = timer(lambda: ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy,
+                                                 states=states), 3)
+    # read: da, dbx, c, the states, dy; written: dda, ddbx, dc, dh0
+    nbytes = 4.0 * (4 * b * seq * d * n + 2 * b * seq * n + n_states
+                    + b * d * n + b * seq * d)
     flops = 6.0 * b * seq * d * n
-    log(f"K6b {name}: dda, ddbx, dh0 bit-equal, dc max_err {err:.3g}, two "
-        f"runs torch.equal | ms {spread(ms_)} plain {plain['ms']:.4f} "
-        f"library none | bound {bound(nbytes, flops)[0]:.4f}")
-    return row_stats(ms_, plain, None, nbytes, flops, err)
+    log(f"K6b {name}, given the forward's states: dda, ddbx, dh0 "
+        f"bit-equal, dc max_err {err:.3g}, two runs torch.equal | ms "
+        f"{spread(ms_)} plain {plain['ms']:.4f} library none | bound "
+        f"{bound(nbytes, flops)[0]:.4f}")
+    return fwd, row_stats(ms_, plain, None, nbytes, flops, err)
 
 
 #: phase 11's run: ``python -m repro_torch.launch.train`` with these flags
@@ -2794,7 +2831,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     k5t, k5tb = check_flash_attention_bwd(timer, gen, torch.bfloat16)
     _, k5tb32 = check_flash_attention_bwd(timer, gen, torch.float32)
-    k6b = check_mamba_scan_bwd(timer, gen)
+    k6s, k6b = check_mamba_scan_bwd(timer, gen)
     torch.cuda.empty_cache()
     clocks("after phase 2")
     del timer
@@ -2871,8 +2908,12 @@ def main(argv) -> int:
             ("mamba_scan_mamba2", "mamba_scan",
              "src/repro/kernels/mamba_scan.py:61", k6m,
              f"fp32 {SCAN_MAMBA2_SHAPE}, da a head's scalar; launches: "
-             f"zamba2's serve and phase 11's training",
-             zamba["mamba_scan"] + train["mamba_scan"]),
+             f"zamba2's serve", zamba["mamba_scan"]),
+            ("mamba_scan_states", "mamba_scan",
+             "src/repro/kernels/mamba_scan.py:61", k6s,
+             f"fp32 {TRAIN_SCAN_SHAPE}, da a head's scalar, storing the "
+             f"state every {ref.SCAN_CHUNK} steps (phase 11's forward and "
+             f"remat calls)", train["mamba_scan"]),
             ("flash_attention_train", "flash_attention",
              "src/repro/kernels/flash_attention.py:99", k5t,
              f"bf16 {TRAIN_ATTN_CASE} causal, with lse (phase 11's call)",
@@ -2888,7 +2929,8 @@ def main(argv) -> int:
             ("mamba_scan_bwd", "mamba_scan_bwd",
              "src/repro/kernels/mamba_scan.py:61", k6b,
              f"fp32 {TRAIN_SCAN_SHAPE}, da a head's scalar, the gradient "
-             f"of mamba_scan (phase 11)", train["mamba_scan_bwd"])):
+             f"of mamba_scan given its states (phase 11)",
+             train["mamba_scan_bwd"])):
         b_ms, b_by = bound(stats["bytes"], stats["flops"], stats["rate"])
         rows.append({"name": name, "route": "cuda",
                      "source": f"{src}{file}.cu", "replaces": replaces,

@@ -8,6 +8,8 @@ NVIDIA GPU.
     git show 273c856:src/repro_torch/kernels/csrc/flash_attention.cu > build/old/flash_attention.cu
     git show bac22f7:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
     git show bac22f7:src/repro_torch/kernels/csrc/flash_decode_proj.cu > build/old/flash_decode_proj.cu
+    git show f0798b2:src/repro_torch/kernels/csrc/flash_attention_bwd.cu > build/old/flash_attention_bwd.cu
+    git show f0798b2:src/repro_torch/kernels/csrc/mamba_scan_bwd.cu > build/old/mamba_scan_bwd.cu
     python3 compare_kernels.py build/old
 
 Each kernel whose source the directory holds is compared; an earlier
@@ -17,8 +19,11 @@ source must have the C interface of the commit named above:
 ``flash_attention_fwd`` without the lse pointer it took later (commits
 273c856 to 6eaa34c);
 ``flash_decode_f32`` as it is now (commit bac22f7, the kernel before its
-bf16 route); ``flash_decode_proj_f32`` as it is now (commit bac22f7).  They
-are built with the port's nvcc flags.  On the same inputs, for each of
+bf16 route); ``flash_decode_proj_f32`` as it is now (commit bac22f7);
+``flash_attention_bwd`` as it is now (commit f0798b2, FFMA from shared
+memory); ``mamba_scan_bwd_f32`` taking h0 and a checkpoint scratch, which
+it fills by replaying the scan (commit f0798b2).  They are built with the
+port's nvcc flags.  On the same inputs, for each of
 ``chip_smoke.py``'s prefill nest_gemm shapes (M > 8) and fused_chain
 cases, this prints whether the two outputs are ``torch.equal``; for
 flash_attention at ``chip_smoke.py``'s shape (fp32 and bf16),
@@ -27,7 +32,11 @@ at ``chip_smoke.py``'s K4 case (full-width gemma-7b's attention segment
 at 4 requests, wo 4096 x 3072), whose sum orders changed, whether they
 are ``torch.equal`` and ``torch.allclose`` at ``check()``'s tolerance (fp32: rtol 2e-4, atol
 2e-4 * d, or 2e-4 * k_out for the projection; bf16 outputs: rtol 2e-2,
-atol 2e-1, the card tests') and their largest difference.  Both device times
+atol 2e-1, the card tests') and their largest difference; the same for
+flash_attention_bwd's (dq, dk, dv) at ``chip_smoke.TRAIN_ATTN_CASE``
+(fp32 and bf16), and for mamba_scan_bwd's (dda, ddbx, dc, dh0) at
+``chip_smoke.TRAIN_SCAN_SHAPE``, this tree's given the forward's states
+(as training calls it; the forward is not timed).  Both device times
 follow (median [min..max] of the reps, timed as ``chip_smoke.py`` times
 them); the earlier kernel is timed between two timings of this tree's.
 flash_decode_proj is timed once more as a probe, with L2 cleared by
@@ -53,6 +62,7 @@ from repro_torch.configs.feather import feather_config
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_chain as fc
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import nest_gemm as ng
 from repro_torch.runtime import ModelExecutable, ProgramCache
 
@@ -62,7 +72,7 @@ OLD_SMEM_LIMIT = 200 * 1024
 
 #: the kernels this script can compare, by source name
 NAMES = ("nest_gemm", "fused_chain", "flash_attention", "flash_decode",
-         "flash_decode_proj")
+         "flash_decode_proj", "flash_attention_bwd", "mamba_scan_bwd")
 
 
 class Old:
@@ -85,7 +95,9 @@ class Old:
             ("nest_gemm", "nest_gemm_f32"), ("fused_chain", "fused_chain_f32"),
             ("flash_attention", "flash_attention_fwd"),
             ("flash_decode", "flash_decode_f32"),
-            ("flash_decode_proj", "flash_decode_proj_f32")) if n in libs}
+            ("flash_decode_proj", "flash_decode_proj_f32"),
+            ("flash_attention_bwd", "flash_attention_bwd"),
+            ("mamba_scan_bwd", "mamba_scan_bwd_f32")) if n in libs}
         argtypes = {
             "nest_gemm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
             + [ctypes.c_void_p],
@@ -96,7 +108,11 @@ class Old:
             "flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p],
             "flash_decode_proj": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p]}
+            + [ctypes.c_float, ctypes.c_void_p],
+            "flash_attention_bwd": [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+            "mamba_scan_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]}
         for name, fn in fns.items():
             fn.argtypes = argtypes[name]
             fn.restype = ctypes.c_int
@@ -105,6 +121,11 @@ class Old:
         self.fa = fns.get("flash_attention")
         self.fd = fns.get("flash_decode")
         self.fdp = fns.get("flash_decode_proj")
+        self.fab = fns.get("flash_attention_bwd")
+        self.msb = fns.get("mamba_scan_bwd")
+        if self.msb is not None:
+            self.msb_lib = ctypes.CDLL(libs["mamba_scan_bwd"])
+            self.msb_lib.mamba_scan_bwd_blocks.argtypes = [ctypes.c_int] * 2
 
     def nest_gemm(self, x, w, *, out_block_t, act):
         m, k = x.shape
@@ -172,6 +193,36 @@ class Old:
         return out
 
 
+    def flash_attention_bwd(self, q, k, v, o, lse, do, *, causal):
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        bh, s, d = q.shape
+        dsum = torch.empty((bh, s), device=q.device)
+        err = self.fab(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), bh, s,
+                       k.shape[1], d, k.shape[1], int(causal),
+                       int(q.dtype == torch.bfloat16), d ** -0.5,
+                       build.stream_handle())
+        build.raise_on_error(err, "earlier flash_attention_bwd")
+        return dq, dk, dv
+
+    def mamba_scan_bwd(self, da, dbx, c, h0, dy):
+        b, seq, d, n = da.shape
+        blocks = self.msb_lib.mamba_scan_bwd_blocks(d, n)
+        dda, ddbx = torch.empty_like(da), torch.empty_like(dbx)
+        dc = torch.empty((b, seq, n), device=da.device)
+        dh0 = torch.empty((b, d, n), device=da.device)
+        ckpt = torch.empty((b, -(-seq // 16), d, n), device=da.device)
+        dc_part = torch.empty((b, blocks, seq, n), device=da.device)
+        err = self.msb(da.data_ptr(), dbx.data_ptr(), c.data_ptr(),
+                       h0.data_ptr(), dy.data_ptr(), None, dda.data_ptr(),
+                       ddbx.data_ptr(), dc.data_ptr(), dh0.data_ptr(),
+                       ckpt.data_ptr(), dc_part.data_ptr(), b, seq, d, n,
+                       build.stream_handle())
+        build.raise_on_error(err, "earlier mamba_scan_bwd")
+        return dda, ddbx, dc, dh0
+
+
 class ReadFlush(cs.Timer):
     """``chip_smoke.Timer`` with L2 cleared by reading 256 MB: clean lines,
     nothing to write back.  A probe, not the yardstick."""
@@ -185,13 +236,18 @@ def compare(label, new, old, timer, tol=None) -> None:
     (rtol, atol) ``torch.allclose`` and the largest difference), then the
     times: this tree's kernel, the earlier one, this tree's again."""
     a_out, b_out = new(), old()
-    same = f"torch.equal {torch.equal(a_out, b_out)}"
+    if not isinstance(a_out, tuple):         # one output, or several
+        a_out, b_out = (a_out,), (b_out,)
+    pairs = list(zip(a_out, b_out, strict=True))
+    same = f"torch.equal {[torch.equal(a, b) for a, b in pairs]}"
     if tol is not None:
-        a_f, b_f = a_out.float(), b_out.float()
-        close = torch.allclose(a_f, b_f, rtol=tol[0], atol=tol[1])
+        close = all(torch.allclose(a.float(), b.float(), rtol=tol[0],
+                                   atol=tol[1]) for a, b in pairs)
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in pairs)
         same += (f", torch.allclose (rtol {tol[0]}, atol {tol[1]}) {close},"
-                 f" max |diff| {float((a_f - b_f).abs().max()):.3g}")
-    del a_out, b_out
+                 f" max |diff| {diff:.3g}")
+    del a_out, b_out, pairs
     a, b, c = timer(new), timer(old), timer(new)
     print(f"  {label} | {same} | this tree {cs.spread(a)} then "
           f"{cs.spread(c)} | earlier {cs.spread(b)}", flush=True)
@@ -287,6 +343,45 @@ def compare_decode_proj(old, gen, timer) -> None:
                 (cs.RTOL, cs.RTOL * a["k_out"]))
 
 
+def compare_attention_bwd(old, gen, timer) -> None:
+    bh, s, d = cs.TRAIN_ATTN_CASE
+    print(f"flash_attention_bwd: BH {bh} S {s} d {d} causal, chip_smoke.py's "
+          f"inputs: (dq, dk, dv)", flush=True)
+    for dtype, tol in ((torch.float32, (cs.RTOL, cs.RTOL)),
+                       (torch.bfloat16, (2e-2, 2e-2))):
+        q = (torch.randn(bh, s, d, device="cuda", generator=gen) * 8.0
+             ).to(dtype)
+        k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen
+                                ).to(dtype) for _ in range(3))
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        compare(f"{str(dtype).split('.')[1]}",
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=True),
+                lambda: old.flash_attention_bwd(q, k, v, o, lse, do,
+                                                causal=True), timer, tol)
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+
+def compare_scan_bwd(old, gen, timer) -> None:
+    b, seq, d, n = cs.TRAIN_SCAN_SHAPE
+    print(f"mamba_scan_bwd: {cs.TRAIN_SCAN_SHAPE}, da a head's scalar: (dda, "
+          f"ddbx, dc, dh0), this tree given the forward's states", flush=True)
+    da = (0.7 + 0.299 * torch.rand(b, seq, device="cuda", generator=gen)
+          )[..., None, None].expand(b, seq, d, n).contiguous()
+    dbx = torch.randn(b, seq, d, n, device="cuda", generator=gen) * 0.1
+    c = torch.randn(b, seq, n, device="cuda", generator=gen)
+    h0 = torch.randn(b, d, n, device="cuda", generator=gen) * 0.1
+    dy = torch.randn(b, seq, d, device="cuda", generator=gen)
+    states = ms.mamba_scan(da, dbx, c, h0, return_states=True)[2]
+    compare("fp32", lambda: ms.mamba_scan_bwd(da, dbx, c, h0, dy,
+                                              states=states),
+            lambda: old.mamba_scan_bwd(da, dbx, c, h0, dy), timer,
+            (cs.RTOL, cs.RTOL * d))
+    del da, dbx, c, h0, dy, states
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if len(argv) != 1:
         print("usage: compare_kernels.py OLD_CSRC_DIR", file=sys.stderr)
@@ -306,7 +401,9 @@ def main(argv) -> int:
                      ("fused_chain", compare_fused),
                      ("flash_attention", compare_attention),
                      ("flash_decode", compare_decode),
-                     ("flash_decode_proj", compare_decode_proj)):
+                     ("flash_decode_proj", compare_decode_proj),
+                     ("flash_attention_bwd", compare_attention_bwd),
+                     ("mamba_scan_bwd", compare_scan_bwd)):
         if name in old.names:
             fn(old, gen, timer)
     print(cs.card(), flush=True)

@@ -46,9 +46,19 @@ def _leaves(tree, prefix: str = ""):
         yield from _leaves(val, f"{prefix}/{key}" if prefix else str(key))
 
 
+def _owned(arr: np.ndarray) -> np.ndarray:
+    """``arr``, or a copy where it is a view of memory it does not own.
+    ``to_numpy`` of a CPU tensor (and so every leaf of a CPU
+    ``state_tree``) shares the tensor's memory, which the optimizer
+    changes in place while an asynchronous save writes it."""
+    return arr if arr.flags.owndata else np.array(arr, copy=True)
+
+
 def _flatten(tree) -> dict[str, np.ndarray]:
-    return {key: (to_numpy(leaf) if isinstance(leaf, torch.Tensor)
-                  else np.asarray(leaf))
+    """The host snapshot of ``tree``: every leaf a numpy array that owns
+    its memory."""
+    return {key: _owned(to_numpy(leaf) if isinstance(leaf, torch.Tensor)
+                        else np.asarray(leaf))
             for key, leaf in _leaves(tree)}
 
 

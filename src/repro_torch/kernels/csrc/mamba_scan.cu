@@ -10,7 +10,12 @@
 //
 // da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N]; y [B, L, D] and
 // h_last [B, D, N].  Mamba-2 calls it with its heads folded into B and
-// a head's channels as D (zamba2-1.2b: [B * 64, L, 64, 64]).
+// a head's channels as D (zamba2-1.2b: [B * 64, L, 64, 64]).  When a
+// gradient is wanted the caller also passes states [B, ceil(L / 16), D,
+// N]: the state each chunk of 16 steps starts from (h0, then h_15,
+// h_31, ...), which mamba_scan_bwd.cu reads instead of replaying the
+// scan.  They are one store of the registers every 16 steps; y and
+// h_last are the same with or without.
 //
 // What bounds it on an H100: bytes.  Each da and dbx element is read once
 // and used for 3 flops; at falcon-mamba-7b's d_inner 8192, N 16 and
@@ -35,6 +40,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kAhead = 8;                // time steps loaded ahead
+constexpr int kChunk = 16;               // steps between stored states
+static_assert(kChunk % kAhead == 0, "a chunk starts a load group");
 
 template <int N>
 __global__ void __launch_bounds__(kThreads)
@@ -42,7 +49,8 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ dbx,
                       const float* __restrict__ c,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ h_last, int L, int D) {
+                      float* __restrict__ h_last,
+                      float* __restrict__ states, int L, int D) {
   constexpr int kLanes = N < 32 ? N : 32;          // lanes of one channel
   constexpr int kPer = N / kLanes;                 // state elements a lane
   constexpr int kChannels = kThreads / kLanes;     // channels per block
@@ -59,7 +67,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < kPer; ++j)
     h[j] = live ? h0[hbase + j * kLanes] : 0.0f;
 
+  // state k is the one chunk k starts from
+  const size_t sbase = (size_t)b * ((L + kChunk - 1) / kChunk) * step +
+                       (size_t)d * N + lane;
+
   for (int t0 = 0; t0 < L; t0 += kAhead) {
+    if (states != nullptr && live && t0 % kChunk == 0) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        states[sbase + (size_t)(t0 / kChunk) * step + j * kLanes] = h[j];
+    }
     float a[kAhead][kPer], x[kAhead][kPer], cc[kAhead][kPer];
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
@@ -97,23 +114,28 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int N>
 cudaError_t launch(const float* da, const float* dbx, const float* c,
-                   const float* h0, float* y, float* h_last, int B, int L,
-                   int D, cudaStream_t stream) {
+                   const float* h0, float* y, float* h_last, float* states,
+                   int B, int L, int D, cudaStream_t stream) {
   constexpr int kChannels = kThreads / (N < 32 ? N : 32);
   dim3 grid((D + kChannels - 1) / kChannels, B);
-  mamba_scan_kernel<N>
-      <<<grid, kThreads, 0, stream>>>(da, dbx, c, h0, y, h_last, L, D);
+  mamba_scan_kernel<N><<<grid, kThreads, 0, stream>>>(da, dbx, c, h0, y,
+                                                       h_last, states, L, D);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The steps between stored states (states is [B, ceil(L / this), D, N]).
+extern "C" int mamba_scan_chunk() { return kChunk; }
+
 // da, dbx [B, L, D, N], c [B, L, N], h0 [B, D, N], y [B, L, D], h_last
-// [B, D, N], contiguous fp32 on the device; N a power of two up to 64.
+// [B, D, N], states as mamba_scan_chunk() sizes it or null (not
+// written), contiguous fp32 on the device; N a power of two up to 64.
 // Returns the launch's cudaError_t.
 extern "C" int mamba_scan_f32(const void* da, const void* dbx, const void* c,
-                              const void* h0, void* y, void* h_last, int B,
-                              int L, int D, int N, void* stream) {
+                              const void* h0, void* y, void* h_last,
+                              void* states, int B, int L, int D, int N,
+                              void* stream) {
   if (B <= 0 || D <= 0) return 0;
   const float* a = static_cast<const float*>(da);
   const float* x = static_cast<const float*>(dbx);
@@ -121,16 +143,17 @@ extern "C" int mamba_scan_f32(const void* da, const void* dbx, const void* c,
   const float* h = static_cast<const float*>(h0);
   float* yf = static_cast<float*>(y);
   float* hl = static_cast<float*>(h_last);
+  float* st = static_cast<float*>(states);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (N) {
-    case 1: err = launch<1>(a, x, cf, h, yf, hl, B, L, D, s); break;
-    case 2: err = launch<2>(a, x, cf, h, yf, hl, B, L, D, s); break;
-    case 4: err = launch<4>(a, x, cf, h, yf, hl, B, L, D, s); break;
-    case 8: err = launch<8>(a, x, cf, h, yf, hl, B, L, D, s); break;
-    case 16: err = launch<16>(a, x, cf, h, yf, hl, B, L, D, s); break;
-    case 32: err = launch<32>(a, x, cf, h, yf, hl, B, L, D, s); break;
-    case 64: err = launch<64>(a, x, cf, h, yf, hl, B, L, D, s); break;
+    case 1: err = launch<1>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
+    case 2: err = launch<2>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
+    case 4: err = launch<4>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
+    case 8: err = launch<8>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
+    case 16: err = launch<16>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
+    case 32: err = launch<32>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
+    case 64: err = launch<64>(a, x, cf, h, yf, hl, st, B, L, D, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -198,30 +198,37 @@ def attention_core(qf, kf, vf, *, causal, bq, bkv, kv_len):
 
 
 class _MambaScan(torch.autograd.Function):
-    """The scan with its gradient: the backward replays the states from
-    the saved inputs.  An output whose gradient is not wanted (h_last
-    when only y is used) reaches the backward as None, not zeros."""
+    """The scan with its gradient: the forward also stores the state each
+    chunk of ``ref.SCAN_CHUNK`` steps starts from, and the backward
+    recomputes each chunk's states from it.  The states go through
+    ``save_for_backward``, so that ``torch.utils.checkpoint`` drops them
+    with the inputs and rebuilds them in its recompute.  An output whose
+    gradient is not wanted (h_last when only y is used) reaches the
+    backward as None, not zeros."""
 
     @staticmethod
     def forward(ctx, da, dbx, c, h0):
         ctx.set_materialize_grads(False)
         if _on_cpu(da, dbx, c, h0):
-            y, h_last = ref.mamba_scan_ref(da, dbx, c, h0)
+            y, h_last, states = ref.mamba_scan_ref(da, dbx, c, h0,
+                                                   return_states=True)
         else:
-            y, h_last = _ms.mamba_scan(da, dbx, c, h0)
-        ctx.save_for_backward(da, dbx, c, h0)
+            y, h_last, states = _ms.mamba_scan(da, dbx, c, h0,
+                                               return_states=True)
+        ctx.save_for_backward(da, dbx, c, h0, states)
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        da, dbx, c, h0 = ctx.saved_tensors
+        da, dbx, c, h0, states = ctx.saved_tensors
         if dy is None:
             dy = da.new_zeros(da.shape[:3])
         if _on_cpu(da, dbx, c, h0):
-            return ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last)
+            return ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last,
+                                          states)
         return _ms.mamba_scan_bwd(
             da, dbx, c, h0, dy.contiguous(),
-            None if dh_last is None else dh_last.contiguous())
+            None if dh_last is None else dh_last.contiguous(), states)
 
 
 def scan_core(da, dbx, c, h0):

@@ -272,36 +272,53 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+#: the scan stores the state each chunk of this many steps starts from
+#: for its backward (``csrc/mamba_scan.cu``, ``csrc/mamba_scan_bwd.cu``)
+SCAN_CHUNK = 16
+
+
 def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
-                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                   h0: torch.Tensor, *, return_states: bool = False):
     """The selective scan step by step: ``h = da_t * h + dbx_t`` over
     [B, D, N], ``y_t = sum_n c_t[n] * h[:, n]``.  da, dbx [B, L, D, N],
-    c [B, L, N], h0 [B, D, N]; returns (y [B, L, D], h_last [B, D, N])."""
+    c [B, L, N], h0 [B, D, N]; returns (y [B, L, D], h_last [B, D, N]),
+    with ``return_states`` also the state each chunk of
+    :data:`SCAN_CHUNK` steps starts from, [B, ceil(L / SCAN_CHUNK), D,
+    N] (h0, h_15, h_31, ...)."""
     f32 = _acc(da.dtype)
     h = h0.to(f32)
     # the steps unbound and the outputs stacked, not indexed and written
     # in place: differentiated by autograd, a step's slice then costs no
     # full-size gradient (one stack for all of them)
-    ys = []
-    for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1), c.unbind(1)):
+    ys, states = [], []
+    for t, (da_t, dbx_t, c_t) in enumerate(zip(da.unbind(1), dbx.unbind(1),
+                                               c.unbind(1))):
+        if t % SCAN_CHUNK == 0:
+            states.append(h)
         h = da_t.to(f32) * h + dbx_t.to(f32)
         ys.append((h * c_t[:, None, :].to(f32)).sum(dim=-1))
-    return torch.stack(ys, 1), h
+    if not return_states:
+        return torch.stack(ys, 1), h
+    return torch.stack(ys, 1), h, torch.stack(states, 1)
 
 
-def mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last=None):
+def mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last=None, states=None):
     """The gradients of :func:`mamba_scan_ref` by the reverse scan, in
     fp32: with ``g_t`` the gradient reaching ``h_t`` (``dh_last`` and
     ``c_L * dy_L`` at the last step), ``g_t = c_t * dy_t + da_{t+1} *
     g_{t+1}``, ``ddbx_t = g_t``, ``dda_t = g_t * h_{t-1}``, ``dc_t =
-    sum_d dy_t * h_t`` and ``dh0 = da_1 * g_1``.  The states are replayed
-    forward first (as the forward computes them).  dy [B, L, D], dh_last
-    [B, D, N] or None (zero); returns (dda, ddbx, dc, dh0)."""
+    sum_d dy_t * h_t`` and ``dh0 = da_1 * g_1``.  The states are
+    recomputed as the forward computes them: from h0, or, given the
+    forward's ``states`` (``return_states``), each chunk from the state
+    it starts from.  dy [B, L, D], dh_last [B, D, N] or None (zero);
+    returns (dda, ddbx, dc, dh0)."""
     b, seq, d, n = da.shape
     f32 = _acc(da.dtype)
     hs = [h0.to(f32)]
     for t in range(seq):
-        hs.append(da[:, t].to(f32) * hs[-1] + dbx[:, t].to(f32))
+        if states is not None and t % SCAN_CHUNK == 0:
+            hs[t] = states[:, t // SCAN_CHUNK].to(f32)
+        hs.append(da[:, t].to(f32) * hs[t] + dbx[:, t].to(f32))
     dda = torch.empty((b, seq, d, n), dtype=f32, device=da.device)
     ddbx = torch.empty_like(dda)
     dc = torch.empty((b, seq, n), dtype=f32, device=da.device)

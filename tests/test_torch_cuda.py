@@ -813,12 +813,14 @@ def _close_grads(got, want, dtype):
 
 # (bh, s, sk, d, causal, kv_len): block-aligned and ragged sequences,
 # every head-dim template (32 .. 256), a masked key tail, full attention
-# with more keys than queries
+# with more keys than queries, and a head_dim (34) whose rows are not
+# whole 16-byte chunks (element-wise staging in both dtypes)
 ATTN_BWD_CASES = [
     (4, 128, 128, 64, True, 128), (2, 96, 96, 32, True, 90),
     (3, 70, 70, 96, False, 70), (2, 64, 64, 128, True, 50),
     (2, 40, 72, 192, False, 60), (1, 33, 33, 256, True, 33),
     (2, 16, 48, 64, False, 48), (2, 200, 200, 48, True, 200),
+    (2, 45, 45, 34, True, 40),
 ]
 
 
@@ -868,31 +870,103 @@ def test_flash_attention_bwd_masked_rows_give_zero(cuda, dtype):
         assert bool(torch.isfinite(g).all()) and not g.any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("with_dh_last", [False, True])
-@pytest.mark.parametrize("b,l,d,n", SCAN_CASES + [
+#: the scan's backward cases: block-aligned and ragged lengths and
+#: channel blocks, every state width's lane layout, D * N not a multiple of
+#: 4 (element copies), three chunks and more
+SCAN_BWD_CASES = SCAN_CASES + [
     (1, 37, 33, 16), (1, 37, 33, 64), (3, 17, 5, 1), (2, 50, 9, 2),
     (1, 16, 300, 32),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,n", SCAN_BWD_CASES)
+def test_mamba_scan_states_kernel_matches_plain(cuda, b, l, d, n):
+    """The forward with ``return_states``: y and h_last torch.equal to
+    the call without (the states are one more store), the states
+    torch.equal to the plain version's (rounded multiplies and adds in
+    both)."""
+    da, dbx, c, h0 = (_t(a, cuda) for a in _scan_inputs(b, l, d, n))
+    before = ms.launches
+    y, h_last, states = ms.mamba_scan(da, dbx, c, h0, return_states=True)
+    y0, h0_last = ms.mamba_scan(da, dbx, c, h0)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 2
+    assert torch.equal(y, y0) and torch.equal(h_last, h0_last)
+    want = ref.mamba_scan_ref(da, dbx, c, h0, return_states=True)[2]
+    assert states.shape == want.shape and torch.equal(states, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given_states", [False, True])
+@pytest.mark.parametrize("with_dh_last", [False, True])
+@pytest.mark.parametrize("b,l,d,n", SCAN_BWD_CASES)
 def test_mamba_scan_bwd_kernel_matches_plain(cuda, b, l, d, n,
-                                             with_dh_last):
+                                             with_dh_last, given_states):
     """The backward kernel against ``ref.mamba_scan_bwd_ref``: dda, ddbx
-    and dh0 bit-equal (rounded multiplies and adds in both, the states
-    replayed bit-equal), dc within fp32 tolerance (its sum over D in
-    another order); two runs torch.equal."""
+    and dh0 bit-equal (rounded multiplies and adds in both, each chunk's
+    states recomputed bit-equal from the forward's), dc within fp32
+    tolerance (its sum over D in another order); two runs torch.equal.
+    Given the forward's states (as training calls it) or not (the
+    wrapper then launches the forward first, counted as a forward)."""
     da, dbx, c, h0 = (_t(a, cuda) for a in _scan_inputs(b, l, d, n))
     dy = _t(_np((b, l, d)), cuda)
     dh_last = _t(_np((b, d, n)), cuda) if with_dh_last else None
-    before = ms.bwd_launches
-    got = ms.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last)
-    again = ms.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last)
+    states = (ms.mamba_scan(da, dbx, c, h0, return_states=True)[2]
+              if given_states else None)
+    before, before_fwd = ms.bwd_launches, ms.launches
+    got = ms.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last, states)
+    again = ms.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last, states)
     torch.cuda.synchronize()
     assert ms.bwd_launches == before + 2
+    assert ms.launches == before_fwd + (0 if given_states else 2)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     want = ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last)
     for i in (0, 1, 3):
         assert torch.equal(got[i], want[i]), i
     torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=2e-4 * d)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_states_are_dropped_under_checkpoint(cuda):
+    """Layers of ``ops.mamba_scan`` under non-reentrant
+    ``torch.utils.checkpoint``, as ``Model.loss`` runs its blocks: what
+    the forward leaves alive grows by each layer's output (the next
+    layer's saved input), not by its states, which go through
+    ``save_for_backward`` and so are dropped and rebuilt in the
+    recompute; the backward then runs the kernels and gives finite
+    gradients."""
+    from torch.utils.checkpoint import checkpoint
+    b, seq, d, n, layers = 4, 256, 64, 64, 4
+    gen = torch.Generator(cuda).manual_seed(0)
+    w = [(torch.randn(d, n, device=cuda, generator=gen) + 2.0
+          ).requires_grad_() for _ in range(layers)]
+    bm = torch.randn(b, seq, n, device=cuda, generator=gen) * 0.1
+    c = torch.randn(b, seq, n, device=cuda, generator=gen)
+    h0 = torch.zeros(b, d, n, device=cuda)
+
+    def layer(x, wi):
+        da = torch.sigmoid(wi).expand(b, seq, d, n)
+        return ops.mamba_scan(da, x[..., None] * bm[:, :, None, :], c,
+                              h0)[0]
+
+    x = torch.randn(b, seq, d, device=cuda, generator=gen).requires_grad_()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    h = x
+    for wi in w:
+        h = checkpoint(layer, h, wi, use_reentrant=False)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - start
+    out_bytes = 4 * b * seq * d
+    states_bytes = 4 * b * (seq // ref.SCAN_CHUNK) * d * n
+    assert grown < layers * (out_bytes + states_bytes // 2), (grown,
+                                                             states_bytes)
+    before = ms.bwd_launches
+    h.pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert ms.bwd_launches == before + layers
+    assert all(bool(torch.isfinite(t.grad).all()) for t in [x, *w])
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ fp32."""
 import dataclasses
 import os
 import shutil
+import threading
 
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ from repro.models import build_model as jbuild_model
 from repro.train import optimizer as joptlib
 from repro.train.trainer import TrainConfig as JTrainConfig
 from repro.train.trainer import make_train_step as jmake_train_step
-from repro_torch.ckpt.manager import CheckpointManager
+from repro_torch.ckpt.manager import CheckpointManager, _flatten
 from repro_torch.configs.base import ShapeConfig, reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -39,6 +40,7 @@ from repro_torch.dist import elastic
 from repro_torch.dist.compression import fake_quantize_int8
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
+from repro_torch.models.common import to_numpy
 from repro_torch.train import optimizer as optlib
 from repro_torch.train.trainer import (TrainConfig, load_state,
                                        make_train_step, state_tree)
@@ -91,6 +93,47 @@ def test_ckpt_async_and_gc(tmp_path):
     assert mgr.all_steps() == [3, 4]
     r = mgr.restore(4, {"x": torch.empty(4, device="meta")})
     assert float(r["x"][0]) == 4.0
+
+
+def test_ckpt_snapshot_owns_its_memory():
+    """The host snapshot ``save`` hands its writer shares no memory with
+    any CPU tensor of a ``state_tree``: ``optimizer.update`` changes
+    those tensors in place while an asynchronous save writes."""
+    cfg = dataclasses.replace(reduced(get_config("minitron-4b")),
+                              num_layers=1, d_model=32, vocab_size=64)
+    model = build_model(cfg, device="cpu")
+    state = optlib.init(dict(model.net.named_parameters()))
+    flat = _flatten(state_tree(model, state))
+    tensors = [t.detach() for t in model.net.parameters()] + [
+        t for k in ("master", "mu", "nu") for t in state[k].values()]
+    views = [t.numpy() for t in tensors if t.dtype == torch.float32]
+    assert len(views) == len(tensors)
+    for key, arr in flat.items():
+        assert arr.flags.owndata, key
+        assert not any(np.may_share_memory(arr, v) for v in views), key
+
+
+def test_ckpt_save_async_writes_the_values_at_the_call(tmp_path,
+                                                       monkeypatch):
+    """``save_async`` of a large fp32 CPU tensor, and of ``to_numpy`` of
+    one (a ``state_tree`` leaf), each changed in place right after the
+    call, writes the values they had at the call.  The writer thread is
+    held until the change is made, so a snapshot that aliased either
+    would be caught every time."""
+    mgr = CheckpointManager(str(tmp_path))
+    go = threading.Event()
+    write = mgr._write
+    monkeypatch.setattr(mgr, "_write",
+                        lambda step, flat: (go.wait(), write(step, flat)))
+    w, u = torch.full((1 << 22,), 1.0), torch.full((1 << 20,), 3.0)
+    mgr.save_async(1, {"w": w, "u": to_numpy(u)})
+    w.fill_(2.0)
+    u.fill_(4.0)
+    go.set()
+    mgr.wait()
+    r = mgr.restore(1, {"w": torch.empty(w.shape, device="meta"),
+                        "u": torch.empty(u.shape, device="meta")})
+    assert bool((r["w"] == 1.0).all()) and bool((r["u"] == 3.0).all())
 
 
 def test_ckpt_shape_mismatch_rejected(tmp_path):

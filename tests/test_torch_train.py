@@ -119,6 +119,87 @@ def test_plain_backwards_need_no_output_gradient():
         assert torch.equal(a, z)
 
 
+def _scan_arrays(rng, b, seq, d, n):
+    return [torch.from_numpy(a) for a in (
+        rng.uniform(0.6, 0.99, (b, seq, d, n)).astype(np.float32),
+        _normal(rng, (b, seq, d, n), 0.3), _normal(rng, (b, seq, n)),
+        _normal(rng, (b, d, n), 0.3))]
+
+
+@pytest.mark.parametrize("seq", [1, 16, 17, 40])
+def test_mamba_scan_ref_states_are_the_chunk_edges(seq):
+    """``mamba_scan_ref(..., return_states=True)``: y and h_last
+    torch.equal to the call without; the states torch.equal to those of
+    a step-by-step scan at every ``SCAN_CHUNK``-th step (the state each
+    chunk starts from: h0, h_15, h_31, ...)."""
+    da, dbx, c, h0 = _scan_arrays(_rng(seq), 2, seq, 3, 8)
+    y, h_last, states = ref.mamba_scan_ref(da, dbx, c, h0,
+                                           return_states=True)
+    y0, h0_last = ref.mamba_scan_ref(da, dbx, c, h0)
+    assert torch.equal(y, y0) and torch.equal(h_last, h0_last)
+    h, want = h0, []
+    for t in range(seq):
+        if t % ref.SCAN_CHUNK == 0:
+            want.append(h)
+        h = da[:, t] * h + dbx[:, t]
+    assert states.shape == (2, -(-seq // ref.SCAN_CHUNK), 3, 8)
+    assert torch.equal(states, torch.stack(want, 1))
+
+
+@pytest.mark.parametrize("seq,with_dh_last", [(9, False), (33, False),
+                                              (33, True), (48, True)])
+def test_mamba_scan_bwd_ref_given_states_equals_the_replay(seq,
+                                                           with_dh_last):
+    """``mamba_scan_bwd_ref`` given the forward's states (each chunk's
+    states recomputed from its first) torch.equal to it without (the
+    states replayed from h0)."""
+    rng = _rng(100 + seq)
+    da, dbx, c, h0 = _scan_arrays(rng, 2, seq, 3, 8)
+    dy = torch.from_numpy(_normal(rng, (2, seq, 3)))
+    dh = torch.from_numpy(_normal(rng, (2, 3, 8))) if with_dh_last else None
+    states = ref.mamba_scan_ref(da, dbx, c, h0, return_states=True)[2]
+    given = ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh, states)
+    replay = ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh)
+    for a, b in zip(given, replay, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_mamba_scan_backward_over_chunks_matches_jax_grad():
+    """The gradients of ``ops.mamba_scan`` over three chunks of states
+    (37 steps; the backward recomputes each chunk from the state the
+    forward stored) against ``jax.grad`` of ``mamba_scan_ref``."""
+    rng = _rng(37)
+    da, dbx, c, h0 = (t.numpy() for t in _scan_arrays(rng, 2, 37, 5, 16))
+    dy, dh = _normal(rng, (2, 37, 5)), _normal(rng, (2, 5, 16))
+    got = _grads_torch(ops.mamba_scan, (da, dbx, c, h0), (dy, dh))
+
+    def jloss(*args):
+        y, h_last = jref.mamba_scan_ref(*args)
+        return jnp.sum(y * dy) + jnp.sum(h_last * dh)
+    want = jax.grad(jloss, (0, 1, 2, 3))(da, dbx, c, h0)
+    for g, w in zip(got, want, strict=True):
+        close(g, w)
+
+
+def test_mamba_scan_function_saves_its_states_for_backward():
+    """``ops.mamba_scan`` with a gradient saves the forward's states
+    through ``save_for_backward`` (seen by saved-tensor hooks, as
+    ``torch.utils.checkpoint`` sees them), not as a ctx attribute that
+    the checkpoint's hooks would keep alive."""
+    arrays = _scan_arrays(_rng(8), 2, 20, 3, 8)
+    ts = [a.requires_grad_() for a in arrays]
+    packed = []
+
+    def pack(t):
+        packed.append(tuple(t.shape))
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y, _ = ops.mamba_scan(*ts)
+    assert (2, 2, 3, 8) in packed
+    y.sum().backward()
+    assert all(t.grad is not None for t in ts)
+
+
 @pytest.mark.parametrize("causal,kv_len", [(True, 12), (False, 12),
                                            (True, 7), (False, 0)])
 def test_flash_attention_function_gradcheck(causal, kv_len):
