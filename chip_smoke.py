@@ -122,8 +122,26 @@ Phases (any failure exits non-zero; no phase catches its own):
      one step, a checkpoint, a new run resumed from it (``--resume
      auto``) and one step: every parameter and optimizer tensor
      torch.equal.
+ 12. the examples and the dry run: ``examples/torch_quickstart.py``
+     (both backends within 1e-3 of the oracle; nest_gemm launched);
+     ``examples/torch_serve_lm.py`` on cuda (fused_chain, flash_decode
+     and nest_gemm launched) and on the interpreter on the card, the
+     per-request checksums bit-equal; ``examples/torch_minisa_plan.py
+     --check-backends`` for gemma-7b and deepseek-v2-236b at 16x256
+     (nest_gemm at their decode_32k GEMM shapes; worst |err| and the
+     GEMMs run logged); ``examples/torch_train_lm.py`` (gemma-7b cut to
+     8 layers at d 512, batch 8 x 256) for 20 steps and resumed to 30,
+     launches exact and the loss falling, and a straight 30-step run
+     against the same run resumed from its checkpoint of 20, every
+     parameter and optimizer tensor torch.equal; then ``launch.dryrun
+     --all`` on the 16 x 16 mesh: 32 cells OK and 8 SKIP, traced on
+     ``meta`` with no kernel launched and no card memory allocated,
+     each cell's numbers logged, the five largest t_compute, and each
+     dense prefill cell's products outside the kernel ops against
+     ``core.model_gemms``.  Each example's launches go on a line of
+     their own.
 
-Phases 10 and 11 run last, after phase 9's weights are freed, and free
+Phases 10 to 12 run last, after phase 9's weights are freed, and free
 what they make.  Ends with the ``kernels`` JSON line (a row per route, each with
 its own path's launches and what its times were taken at), the card's
 name and power limit, and the result line ``{"ok": true, "device":
@@ -135,8 +153,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -153,7 +173,8 @@ from repro_torch import backends  # noqa: E402
 from repro_torch.backends import (Backend, CudaBackend,  # noqa: E402
                                   compile_program, compile_segment)
 from repro_torch.configs.feather import feather_config  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core import isa, mapper, workloads  # noqa: E402
 from repro_torch.core import program as programlib  # noqa: E402
 from repro_torch.dist import ArrayMesh  # noqa: E402
@@ -167,7 +188,10 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nest_gemm as ng  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.core.model_gemms import gemm_workloads  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -2765,6 +2789,181 @@ def training_phase(device="cuda") -> tuple[dict, dict]:
     return launched, f32
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the examples, the planning example's backend check, the dry run
+# ---------------------------------------------------------------------------
+
+def example(name: str):
+    """``examples/<name>.py`` loaded as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launched_line(name: str) -> dict:
+    """The kernels launched since the counts were set to 0, logged."""
+    launched = counts()
+    log(f"{name}: launches { {k: v for k, v in launched.items() if v} }")
+    return launched
+
+
+def quickstart_example() -> dict:
+    reset_counts()
+    out = example("torch_quickstart").main([])
+    launched = launched_line("torch_quickstart")
+    assert max(out["errs"].values()) < 1e-3, out["errs"]
+    assert launched["nest_gemm"] > 0 and \
+        sum(launched.values()) == launched["nest_gemm"], launched
+    return launched
+
+
+def serve_example() -> dict:
+    """On ``cuda`` (fused_chain, flash_decode and nest_gemm launched),
+    then on the interpreter on the card (no kernel): the per-request
+    checksums bit-equal."""
+    mod = example("torch_serve_lm")
+    reset_counts()
+    cuda = mod.main([])
+    launched = launched_line("torch_serve_lm")
+    assert all(launched[k] > 0 for k in ("fused_chain", "flash_decode",
+                                         "nest_gemm")), launched
+    reset_counts()
+    interp = mod.main(["--backend", "interpreter"])
+    assert sum(counts().values()) == 0, counts()
+    assert cuda["checksums"] == interp["checksums"], (cuda, interp)
+    log(f"torch_serve_lm: {len(cuda['checksums'])} requests, checksums "
+        f"bit-equal between cuda ({cuda['summary']['wall_s']:.2f} s) and "
+        f"the interpreter ({interp['summary']['wall_s']:.2f} s) on the card")
+    return launched
+
+
+def plan_example() -> dict:
+    reset_counts()
+    rows = example("torch_minisa_plan").main(
+        ["--arch", "gemma-7b", "deepseek-v2-236b", "--check-backends"])
+    launched = launched_line("torch_minisa_plan --check-backends")
+    for arch, row in rows.items():
+        log(f"torch_minisa_plan: {arch} worst |err| {row['worst_err']:.3e} "
+            f"over {len(row['checked'])}/{row['n_unique']} GEMMs "
+            f"(m, k, n) {row['checked']}")
+        assert row["checked"], arch
+    assert launched["nest_gemm"] > 0 and \
+        sum(launched.values()) == launched["nest_gemm"], launched
+    return launched
+
+
+def train_example() -> dict:
+    """20 steps, then ``--resume auto`` to 30 (the loss falling over the
+    30); and, as ``--steps`` sets the schedule, a straight 30-step run
+    with a checkpoint after 20, resumed from that checkpoint to 30:
+    every parameter and optimizer tensor torch.equal to the straight
+    run's."""
+    mod = example("torch_train_lm")
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        t0 = time.perf_counter()
+        first = mod.main(["--steps", "20", "--ckpt-dir", f"{d}/a"])
+        again = mod.main(["--steps", "30", "--ckpt-dir", f"{d}/a"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launched_line("torch_train_lm")
+        layers = first["run"].cfg.num_layers
+        expect = {k: 0 for k in launched}
+        expect.update(flash_attention=2 * layers * 30,
+                      flash_attention_bwd=layers * 30)
+        assert launched == expect, (launched, expect)
+        assert again["start"] == 20, again["start"]
+        losses = first["losses"] + again["losses"]
+        assert len(losses) == 30 and all(
+            x == x and abs(x) != float("inf") for x in losses), losses
+        head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log(f"torch_train_lm: 20 steps, resumed from step 20 to 30 in "
+            f"{wall:.1f} s; losses {[round(x, 4) for x in losses]}; mean of "
+            f"the first 5 {head:.4f}, of the last 5 {tail:.4f}")
+        assert tail < head, (head, tail)
+        straight = mod.main(["--steps", "30", "--ckpt-every", "20",
+                             "--ckpt-dir", f"{d}/b"])
+        shutil.copytree(f"{d}/b/step_00000020", f"{d}/c/step_00000020")
+        resumed = mod.main(["--steps", "30", "--ckpt-dir", f"{d}/c"])
+    assert resumed["start"] == 20
+    assert resumed["losses"] == straight["losses"][20:]
+    a, b = straight["run"], resumed["run"]
+    for (n, p), (m, q) in zip(a.model.net.named_parameters(),
+                              b.model.net.named_parameters()):
+        assert n == m and torch.equal(p, q), n
+    for k in ("master", "mu", "nu"):
+        for n in a.opt_state[k]:
+            assert torch.equal(a.opt_state[k][n], b.opt_state[k][n]), (k, n)
+    log("torch_train_lm: a straight 30-step run and the same run resumed "
+        "from its checkpoint of 20: every parameter and optimizer tensor "
+        "torch.equal, the last 10 losses equal")
+    del first, again, straight, resumed, a, b
+    torch.cuda.empty_cache()
+    return launched
+
+
+def dryrun_phase() -> None:
+    """``launch.dryrun --all`` on the production mesh: 32 cells OK and 8
+    SKIP (``long_500k`` under full attention), traced on ``meta`` with no
+    kernel launched and no memory allocated on the card.  Each cell's
+    numbers are logged; then every dense prefill cell's products outside
+    the kernel ops against ``core.model_gemms``."""
+    mesh = make_production_mesh()
+    cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    reset_counts()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    records = dryrun.sweep(cells, mesh, verbose=False)
+    wall = time.perf_counter() - t0
+    assert sum(counts().values()) == 0, counts()
+    assert torch.cuda.memory_allocated() == allocated
+    ok, skip, fail = dryrun.summary(records)
+    log(f"dryrun: {ok} OK, {skip} SKIP, {fail} FAIL / {len(records)} cells "
+        f"on mesh {mesh.axis_sizes} in {wall:.1f} s (H100 constants: "
+        f"{dryrun.PEAK_FLOPS:.3g} flop/s bf16, {dryrun.HBM_BW:.3g} B/s)")
+    for r in records:
+        if r["status"] != "OK":
+            log(f"  {r['arch']:>22} {r['shape']:<12} {r['status']}")
+            continue
+        log(f"  {r['arch']:>22} {r['shape']:<12} flops "
+            f"{r['flops_global']:.4e} argument/device "
+            f"{r['bytes_per_device']['argument'] / 1e9:.3f} GB t_compute "
+            f"{r['t_compute']:.4e} s t_memory {r['t_memory']:.4e} s "
+            f"{r['bottleneck']}")
+    assert (ok, skip, fail) == (32, 8, 0), (ok, skip, fail)
+    top = sorted((r for r in records if r["status"] == "OK"),
+                 key=lambda r: -r["t_compute"])[:5]
+    log("dryrun: largest t_compute: " + "; ".join(
+        f"{r['arch']} {r['shape']} {r['t_compute']:.4f} s" for r in top))
+    for r in records:
+        cfg = get_config(r["arch"])
+        if r["shape"] != "prefill_32k" or cfg.family != "dense":
+            continue
+        want = sum(2.0 * op.gemm.m * op.gemm.k * op.gemm.n * op.gemm.count
+                   for op in gemm_workloads(cfg, SHAPES["prefill_32k"])
+                   if not op.dynamic)
+        log(f"dryrun: {r['arch']} prefill_32k products outside the kernel "
+            f"ops {r['aten_dot_flops']:.6e} flops, model_gemms "
+            f"(non-dynamic) {want:.6e}, ratio "
+            f"{r['aten_dot_flops'] / want:.6f}")
+
+
+def examples_phase() -> dict:
+    """Phase 12; returns each example's launches."""
+    stage("phase 12: the examples on the card")
+    t0 = time.perf_counter()
+    out = {"torch_quickstart": quickstart_example(),
+           "torch_serve_lm": serve_example(),
+           "torch_minisa_plan": plan_example(),
+           "torch_train_lm": train_example()}
+    stage("phase 12: the dry run")
+    dryrun_phase()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py", file=sys.stderr)
@@ -2858,6 +3057,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     zoo, zoo_by_arch = zoo_phase(name_limit)
     train, train32 = training_phase()
+    ex = examples_phase()
     mla = zoo_by_arch["deepseek-v2-236b"]
     falcon, zamba = zoo_by_arch["falcon-mamba-7b"], zoo_by_arch["zamba2-1.2b"]
 

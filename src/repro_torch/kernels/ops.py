@@ -18,6 +18,10 @@ plain torch ops that autograd differentiates.  There is no fallback: a
 backward kernel that fails to build or launch raises.  Without a
 gradient the wrappers run exactly as before, the forward kernels'
 results bit for bit the same.
+
+On the ``meta`` device the model zoo's three kernel ops (and their
+backwards) take ``kernels.meta``: outputs of the right shapes, no data,
+and the kernel's reckoned work told to the dry run's tracer.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_chain as _fc
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import nest_gemm as _ng
 from repro_torch.kernels import ref
 
@@ -90,6 +95,8 @@ def flash_decode(q, k, v, lengths=None, *, bkv=128, scale=1.0):
     lengths = _lengths(lengths, q.shape[0], k.shape[1], q.device)
     if _on_cpu(q, k, v):
         return ref.flash_decode_ref(q, k, v, lengths, bkv=bkv, scale=scale)
+    if _meta.on_meta(q, k, v):
+        return _meta.flash_decode(q, k, v)
     return _fa.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
                             lengths.contiguous(), scale=scale)
 
@@ -162,6 +169,9 @@ class _FlashAttention(torch.autograd.Function):
             o, lse = ref.flash_attention_ref(q, k, v, causal=causal, bq=bq,
                                              bkv=bkv, kv_len=kv_len,
                                              return_lse=True)
+        elif _meta.on_meta(q, k, v):
+            o, lse = _meta.flash_attention(q, k, v, causal=causal,
+                                           kv_len=kv_len, return_lse=True)
         else:
             o, lse = _fa.flash_attention(q, k, v, causal=causal,
                                          kv_len=kv_len, return_lse=True)
@@ -176,6 +186,10 @@ class _FlashAttention(torch.autograd.Function):
             grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 causal=ctx.causal,
                                                 kv_len=ctx.kv_len)
+        elif _meta.on_meta(q, k, v):
+            grads = _meta.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=ctx.causal,
+                                              kv_len=ctx.kv_len)
         else:
             grads = _fa.flash_attention_bwd(q, k, v, o, lse,
                                             do.contiguous(),
@@ -194,6 +208,9 @@ def attention_core(qf, kf, vf, *, causal, bq, bkv, kv_len):
     if _on_cpu(qf, kf, vf):
         return ref.flash_attention_ref(qf, kf, vf, causal=causal, bq=bq,
                                        bkv=bkv, kv_len=kv_len)
+    if _meta.on_meta(qf, kf, vf):
+        return _meta.flash_attention(qf, kf, vf, causal=causal,
+                                     kv_len=kv_len)
     return _fa.flash_attention(qf, kf, vf, causal=causal, kv_len=kv_len)
 
 
@@ -212,6 +229,9 @@ class _MambaScan(torch.autograd.Function):
         if _on_cpu(da, dbx, c, h0):
             y, h_last, states = ref.mamba_scan_ref(da, dbx, c, h0,
                                                    return_states=True)
+        elif _meta.on_meta(da, dbx, c, h0):
+            y, h_last, states = _meta.mamba_scan(da, dbx, c, h0,
+                                                 return_states=True)
         else:
             y, h_last, states = _ms.mamba_scan(da, dbx, c, h0,
                                                return_states=True)
@@ -226,6 +246,8 @@ class _MambaScan(torch.autograd.Function):
         if _on_cpu(da, dbx, c, h0):
             return ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last,
                                           states)
+        if _meta.on_meta(da, dbx, c, h0):
+            return _meta.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last, states)
         return _ms.mamba_scan_bwd(
             da, dbx, c, h0, dy.contiguous(),
             None if dh_last is None else dh_last.contiguous(), states)
@@ -238,6 +260,8 @@ def scan_core(da, dbx, c, h0):
         return _MambaScan.apply(da, dbx, c, h0)
     if _on_cpu(da, dbx, c, h0):
         return ref.mamba_scan_ref(da, dbx, c, h0)
+    if _meta.on_meta(da, dbx, c, h0):
+        return _meta.mamba_scan(da, dbx, c, h0)
     return _ms.mamba_scan(da, dbx, c, h0)
 
 

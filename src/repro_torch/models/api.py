@@ -1,7 +1,8 @@
 """Unified model facade: ``build_model(cfg)`` -> :class:`Model` with
 loss / prefill / decode_step, the decode cache's shapes, the parameter
-count and the weights bridge to and from the JAX package's pytree
-(counterpart of ``repro/models/api.py``).
+count, the weights bridge to and from the JAX package's pytree, and
+the dry run's abstract inputs and logical-axes trees (counterpart of
+``repro/models/api.py``).
 
 A model lives on one device, ``"cuda"`` by default (raising without a
 card); its parameters are drawn from the caller's ``torch.Generator``
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import common, encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import DTYPES, Maker
 from repro_torch.models.mlp import GATED
@@ -112,6 +113,30 @@ class Model(nn.Module):
                                  position_idx=position_idx)
         return logits[:, -1], cache
 
+    # ---------------- abstract specs (dry run) ----------------
+    def batch_spec(self, shape: ShapeConfig) -> dict:
+        """A cell's model inputs as ``meta`` tensors (shapes and dtypes,
+        no data), as the JAX package's ``batch_spec``: decode takes
+        ``tokens`` [B, 1] and ``position`` [B]; train and prefill take
+        ``tokens`` [B, S] (a vlm's S less its prefix, given as
+        ``patches``) and, for encdec, ``frames``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(*dims, dtype=self.dtype):
+            return torch.empty(dims, dtype=dtype, device="meta")
+        if shape.kind == "decode":
+            return {"tokens": spec(b, 1, dtype=torch.int32),
+                    "position": spec(b, dtype=torch.int32)}
+        out, text = {}, s
+        if cfg.family == "vlm":
+            text = s - cfg.frontend_len
+            out["patches"] = spec(b, cfg.frontend_len, cfg.d_model)
+        if cfg.family == "encdec":
+            out["frames"] = spec(b, cfg.frontend_len, cfg.d_model)
+        out["tokens"] = spec(b, text, dtype=torch.int32)
+        return out
+
     def cache_spec(self, batch: int, max_len: int):
         """The decode cache's shapes and dtypes, as tensors on the ``meta``
         device in the cache's structure."""
@@ -152,7 +177,50 @@ class Model(nn.Module):
             out["dense"] = layers(cfg.first_k_dense)
         return out
 
+    def cache_axes(self):
+        """The logical axes of :meth:`cache_spec`'s leaves, in its
+        structure.  The KV caches are head-major, so their axes are the
+        JAX package's ``cache_axes`` with ``kv_heads`` and ``kvseq``
+        swapped; MLA's latent cache and the Mamba states keep its
+        layout."""
+        cfg = self.cfg
+        kv = ("layers", "batch", "kv_heads", "kvseq", "head_dim")
+        if cfg.family == "ssm":
+            return {"layers": {
+                "conv": ("layers", "batch", "conv", "ssm_inner"),
+                "ssm": ("layers", "batch", "ssm_inner", "ssm_state")}}
+        if cfg.family == "hybrid":
+            return {"mamba": {
+                "conv": ("layers", "batch", "conv", "ssm_inner"),
+                "ssm": ("layers", "batch", "ssm_heads", "head_dim",
+                        "ssm_state")},
+                "kv": (kv, kv)}
+        if cfg.family == "encdec":
+            return {"layers": {"self": (kv, kv), "cross": (kv, kv)}}
+        layer = ((("layers", "batch", "kvseq", "kv_lora"),
+                  ("layers", "batch", "kvseq", "head_dim")) if cfg.mla
+                 else (kv, kv))
+        out = {"layers": layer}
+        if cfg.first_k_dense:
+            out["dense"] = layer
+        return out
+
     # ---------------- parameters ----------------
+    def axes(self) -> dict:
+        """Every parameter's logical axes (``Maker.param``'s), in
+        :meth:`numpy_tree`'s layout: a stacked leaf gains ``"layers"``
+        in front, as in the JAX package's ``Model.axes``."""
+        return common.nest({n: p.logical_axes
+                            for n, p in self.net.named_parameters()})
+
+    def shapes(self) -> dict:
+        """The parameters as ``meta`` tensors in :meth:`numpy_tree`'s
+        layout (the stacked leaves stacked): the twin of the JAX
+        package's ``jax.eval_shape(model.init, key)``."""
+        return common.nest({n: torch.empty(p.shape, dtype=p.dtype,
+                                           device="meta")
+                            for n, p in self.net.named_parameters()})
+
     def param_count(self) -> int:
         """Parameters of this configuration, counted on the ``meta``
         device (a full-size count allocates nothing)."""

@@ -63,14 +63,17 @@ class GQA(nn.Module):
         d = cfg.d_model
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         self.rope_theta = cfg.rope_theta
-        self.wq = mk.param((d, h, hd))
-        self.wk = mk.param((d, kv, hd))
-        self.wv = mk.param((d, kv, hd))
-        self.wo = mk.param((h, hd, d))
+        self.wq = mk.param((d, h, hd), ("embed", "heads", "head_dim"))
+        self.wk = mk.param((d, kv, hd), ("embed", "kv_heads", "head_dim"))
+        self.wv = mk.param((d, kv, hd), ("embed", "kv_heads", "head_dim"))
+        self.wo = mk.param((h, hd, d), ("heads", "head_dim", "embed"))
         if getattr(cfg, "qkv_bias", False):
-            self.bq = mk.param((h, hd), init="zeros")
-            self.bk = mk.param((kv, hd), init="zeros")
-            self.bv = mk.param((kv, hd), init="zeros")
+            self.bq = mk.param((h, hd), ("heads", "head_dim"),
+                               init="zeros")
+            self.bk = mk.param((kv, hd), ("kv_heads", "head_dim"),
+                               init="zeros")
+            self.bv = mk.param((kv, hd), ("kv_heads", "head_dim"),
+                               init="zeros")
         else:
             self.bq = self.bk = self.bv = None
 
@@ -165,14 +168,15 @@ class MLA(nn.Module):
                       cfg.v_head_dim)
         self.dn, self.kvr, self.rope_theta = dn, kvr, cfg.rope_theta
         self.scale = (dn + dr) ** -0.5
-        self.wq_a = mk.param((d, qr))
-        self.q_norm = RMSNorm(mk, qr)
-        self.wq_b = mk.param((qr, h, dn + dr))
-        self.wkv_a = mk.param((d, kvr + dr))
-        self.kv_norm = RMSNorm(mk, kvr)
-        self.wk_b = mk.param((kvr, h, dn))
-        self.wv_b = mk.param((kvr, h, dv))
-        self.wo = mk.param((h, dv, d))
+        self.wq_a = mk.param((d, qr), ("embed", "q_lora"))
+        self.q_norm = RMSNorm(mk, qr, "q_lora")
+        self.wq_b = mk.param((qr, h, dn + dr),
+                             ("q_lora", "heads", "head_dim"))
+        self.wkv_a = mk.param((d, kvr + dr), ("embed", "kv_lora"))
+        self.kv_norm = RMSNorm(mk, kvr, "kv_lora")
+        self.wk_b = mk.param((kvr, h, dn), ("kv_lora", "heads", "head_dim"))
+        self.wv_b = mk.param((kvr, h, dv), ("kv_lora", "heads", "head_dim"))
+        self.wo = mk.param((h, dv, d), ("heads", "head_dim", "embed"))
 
     def _q(self, x, positions):
         """``_mla_q``: (q_nope [b, s, h, dn], q_rope [b, s, h, dr])."""

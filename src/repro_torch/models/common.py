@@ -6,9 +6,10 @@ normal over ``shape[0]`` unless a scale is given), drawn from the
 caller's ``torch.Generator``.  Parameter names follow the JAX package's
 pytree keys, so :func:`load_numpy` copies its parameters in by name.
 
-The JAX package's ``Maker`` also has an ``axes`` mode, which returns the
-logical axis names that GSPMD sharding reads; the port has no such mode
-(it waits for the model half of ``dist/sharding``).
+Every parameter also carries the logical names of its dims
+(``logical_axes``, the names the JAX package's ``Maker.param`` takes),
+which ``dist.sharding`` maps onto a mesh; ``Model.axes`` gathers them
+in place of the JAX ``Maker``'s ``axes`` mode.
 """
 
 from __future__ import annotations
@@ -37,17 +38,21 @@ def resolve_device(device) -> torch.device:
 
 class Maker:
     """Parameter factory: ``param`` returns a parameter of ``dtype`` on
-    ``device``, initialised as the JAX package's ``Maker.param`` does.
-    Normal draws come from ``generator`` (on its own device) in fp32,
-    scaled, then cast.  On the ``meta`` device nothing is drawn."""
+    ``device``, initialised as the JAX package's ``Maker.param`` does,
+    with the dims' logical names as its ``logical_axes``.  Normal draws
+    come from ``generator`` (on its own device) in fp32, scaled, then
+    cast.  On the ``meta`` device nothing is drawn."""
 
     def __init__(self, device, dtype, generator: torch.Generator | None):
         self.device = torch.device(device)
         self.dtype = dtype
         self.generator = generator
 
-    def param(self, shape: tuple[int, ...], init: str = "normal",
+    def param(self, shape: tuple[int, ...], axes: tuple[str, ...],
+              init: str = "normal",
               scale: float | None = None) -> nn.Parameter:
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in rank")
         kw = dict(dtype=self.dtype, device=self.device)
         if init not in ("normal", "zeros", "ones"):
             raise ValueError(init)
@@ -65,7 +70,9 @@ class Maker:
             t = torch.randn(shape, generator=g, dtype=torch.float32,
                             device=self.device if g is None else g.device)
             t = (t * scale).to(**kw)
-        return nn.Parameter(t, requires_grad=False)
+        p = nn.Parameter(t, requires_grad=False)
+        p.logical_axes = tuple(axes)
+        return p
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +99,9 @@ def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, mk: Maker, dim: int):
+    def __init__(self, mk: Maker, dim: int, axis: str = "embed"):
         super().__init__()
-        self.scale = mk.param((dim,), init="ones")
+        self.scale = mk.param((dim,), (axis,), init="ones")
 
     def forward(self, x):
         return rmsnorm(self.scale, x)
@@ -103,8 +110,8 @@ class RMSNorm(nn.Module):
 class LayerNorm(nn.Module):
     def __init__(self, mk: Maker, dim: int):
         super().__init__()
-        self.scale = mk.param((dim,), init="ones")
-        self.bias = mk.param((dim,), init="zeros")
+        self.scale = mk.param((dim,), ("embed",), init="ones")
+        self.bias = mk.param((dim,), ("embed",), init="zeros")
 
     def forward(self, x):
         return layernorm(self.scale, self.bias, x)
@@ -165,7 +172,7 @@ def activation(name: str):
 class Embed(nn.Module):
     def __init__(self, mk: Maker, vocab: int, dim: int):
         super().__init__()
-        self.table = mk.param((vocab, dim), scale=1.0)
+        self.table = mk.param((vocab, dim), ("vocab", "embed"), scale=1.0)
 
     def forward(self, tokens):
         return self.table[tokens]
@@ -179,9 +186,9 @@ class Dense(nn.Module):
     """``dense`` without a bias (no ported model uses one)."""
 
     def __init__(self, mk: Maker, d_in: int, d_out: int,
-                 scale: float | None = None):
+                 axes: tuple[str, str], scale: float | None = None):
         super().__init__()
-        self.w = mk.param((d_in, d_out), scale=scale)
+        self.w = mk.param((d_in, d_out), axes, scale=scale)
 
     def forward(self, x):
         return x @ self.w.to(x.dtype)
@@ -261,8 +268,9 @@ def nest(flat: dict) -> dict:
     tensor}`` (a module's names) as the JAX package's pytree.  Under a
     top-level :data:`STACKED` key the members ``<key>.<i>.<name>`` are
     stacked on a new leading axis (``np.stack``, or ``torch.stack`` for
-    tensors); any other numbered level (``dense_layers``) becomes a
-    list."""
+    tensors; a leaf of logical axes gains ``"layers"`` in front, as the
+    JAX package's ``stacked_params`` names it); any other numbered level
+    (``dense_layers``) becomes a list."""
     tree: dict = {}
     for name, leaf in flat.items():
         node = tree
@@ -283,6 +291,8 @@ def nest(flat: dict) -> dict:
         first = members[0]
         if isinstance(first, dict):
             return {k: stack([m[k] for m in members]) for k in first}
+        if isinstance(first, tuple):
+            return ("layers",) + first
         return (torch.stack(members) if isinstance(first, torch.Tensor)
                 else np.stack(members))
 

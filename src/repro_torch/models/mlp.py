@@ -19,9 +19,9 @@ class MLP(nn.Module):
         super().__init__()
         self.kind = kind
         if kind in GATED:
-            self.w_gate = mk.param((d_model, d_ff))
-        self.w_up = mk.param((d_model, d_ff))
-        self.w_down = mk.param((d_ff, d_model))
+            self.w_gate = mk.param((d_model, d_ff), ("embed", "ffn"))
+        self.w_up = mk.param((d_model, d_ff), ("embed", "ffn"))
+        self.w_down = mk.param((d_ff, d_model), ("ffn", "embed"))
 
     def forward(self, x):
         if self.kind in GATED:

@@ -77,9 +77,9 @@ class SharedExperts(nn.Module):
 
     def __init__(self, mk: Maker, d_model: int, d_ff: int):
         super().__init__()
-        self.w_gate = mk.param((d_model, d_ff))
-        self.w_up = mk.param((d_model, d_ff))
-        self.w_down = mk.param((d_ff, d_model))
+        self.w_gate = mk.param((d_model, d_ff), ("embed", "ffn"))
+        self.w_up = mk.param((d_model, d_ff), ("embed", "ffn"))
+        self.w_down = mk.param((d_ff, d_model), ("ffn", "embed"))
 
 
 class MoE(nn.Module):
@@ -94,11 +94,15 @@ class MoE(nn.Module):
         e = num_experts
         self.kind, self.num_experts, self.top_k = kind, e, top_k
         self.capacity_factor = capacity_factor
-        self.router = mk.param((d_model, e), scale=0.02)
+        self.router = mk.param((d_model, e), ("embed", "experts"),
+                               scale=0.02)
         if kind in GATED:
-            self.w_gate = mk.param((e, d_model, d_ff))
-        self.w_up = mk.param((e, d_model, d_ff))
-        self.w_down = mk.param((e, d_ff, d_model))
+            self.w_gate = mk.param((e, d_model, d_ff),
+                                   ("experts", "embed", "expert_ffn"))
+        self.w_up = mk.param((e, d_model, d_ff),
+                             ("experts", "embed", "expert_ffn"))
+        self.w_down = mk.param((e, d_ff, d_model),
+                               ("experts", "expert_ffn", "embed"))
         self.shared = (SharedExperts(mk, d_model, shared_d_ff
                                      or d_ff * num_shared)
                        if num_shared else None)

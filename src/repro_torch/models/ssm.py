@@ -60,15 +60,18 @@ class Mamba(nn.Module):
         super().__init__()
         d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
         self.di, self.n, self.dt_rank = di, n, cfg.ssm_dt_rank
-        self.w_in = mk.param((d, 2 * di))
-        self.conv_w = mk.param((cfg.ssm_d_conv, di), scale=0.5)
-        self.conv_b = mk.param((di,), init="zeros")
-        self.w_x = mk.param((di, self.dt_rank + 2 * n))
-        self.w_dt = mk.param((self.dt_rank, di))
-        self.dt_bias = mk.param((di,), init="zeros")
-        self.a_log = mk.param((di, n), init="zeros")
-        self.d_skip = mk.param((di,), init="ones")
-        self.w_out = mk.param((di, d))
+        self.w_in = mk.param((d, 2 * di), ("embed", "ssm_inner"))
+        self.conv_w = mk.param((cfg.ssm_d_conv, di), ("conv", "ssm_inner"),
+                               scale=0.5)
+        self.conv_b = mk.param((di,), ("ssm_inner",), init="zeros")
+        self.w_x = mk.param((di, self.dt_rank + 2 * n),
+                            ("ssm_inner", "ssm_proj"))
+        self.w_dt = mk.param((self.dt_rank, di), ("ssm_proj", "ssm_inner"))
+        self.dt_bias = mk.param((di,), ("ssm_inner",), init="zeros")
+        self.a_log = mk.param((di, n), ("ssm_inner", "ssm_state"),
+                               init="zeros")
+        self.d_skip = mk.param((di,), ("ssm_inner",), init="ones")
+        self.w_out = mk.param((di, d), ("ssm_inner", "embed"))
 
     def forward(self, x, state=None):
         """x: [b, l, d] -> (y, new_state); state = {"conv": [b, k-1, di],
@@ -106,14 +109,17 @@ class Mamba2(nn.Module):
         d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
         h, g = cfg.ssm_heads, cfg.ssm_groups
         self.di, self.n, self.h, self.g = di, n, h, g
-        self.w_in = mk.param((d, 2 * di + 2 * g * n + h))
-        self.conv_w = mk.param((cfg.ssm_d_conv, di + 2 * g * n), scale=0.5)
-        self.conv_b = mk.param((di + 2 * g * n,), init="zeros")
-        self.a_log = mk.param((h,), init="zeros")
-        self.dt_bias = mk.param((h,), init="zeros")
-        self.d_skip = mk.param((h,), init="ones")
-        self.norm = RMSNorm(mk, di)
-        self.w_out = mk.param((di, d))
+        self.w_in = mk.param((d, 2 * di + 2 * g * n + h),
+                             ("embed", "ssm_inner"))
+        self.conv_w = mk.param((cfg.ssm_d_conv, di + 2 * g * n),
+                               ("conv", "ssm_inner"), scale=0.5)
+        self.conv_b = mk.param((di + 2 * g * n,), ("ssm_inner",),
+                               init="zeros")
+        self.a_log = mk.param((h,), ("ssm_heads",), init="zeros")
+        self.dt_bias = mk.param((h,), ("ssm_heads",), init="zeros")
+        self.d_skip = mk.param((h,), ("ssm_heads",), init="ones")
+        self.norm = RMSNorm(mk, di, "ssm_inner")
+        self.w_out = mk.param((di, d), ("ssm_inner", "embed"))
 
     def forward(self, x, state=None):
         """x: [b, l, d] -> (y, new_state); state = {"conv": [b, k-1, di +

@@ -106,7 +106,8 @@ class Decoder(nn.Module):
             DecoderLayer(mk, cfg)
             for _ in range(cfg.num_layers - cfg.first_k_dense))
         self.head = (None if cfg.tie_embeddings else
-                     Dense(mk, cfg.d_model, cfg.vocab_size, scale=0.02))
+                     Dense(mk, cfg.d_model, cfg.vocab_size,
+                           ("embed", "vocab"), scale=0.02))
 
     def forward(self, tokens, mode: str, cache=None, position_idx=None,
                 prefix_embeds=None, remat: bool = True):

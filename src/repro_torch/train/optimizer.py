@@ -109,3 +109,9 @@ def update(cfg: OptimizerConfig, params: dict, grads: dict,
         master.sub_((step_dir + master * cfg.weight_decay) * lr)
         p.copy_(master)
     return {"lr": lr, "grad_norm": gnorm}
+
+
+def state_axes(params_axes) -> dict:
+    """Optimizer-state logical axes mirror the parameter axes."""
+    return {"master": params_axes, "mu": params_axes, "nu": params_axes,
+            "step": ()}

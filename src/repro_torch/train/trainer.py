@@ -3,9 +3,9 @@ and its gradients, global-norm clipping and AdamW, with optional
 gradient accumulation over microbatches and int8 gradient compression.
 
 The step updates the model's parameters and the optimizer state in
-place and returns its metrics.  The JAX package's ``shardings_for``
-(GSPMD shardings from logical axes) waits for a mesh of cards (ROADMAP
-A.9(b)).
+place and returns its metrics.  :func:`shardings_for` gives the specs
+(``dist.sharding``) and the ``meta`` shapes of the parameters, the
+optimizer state and a batch on a mesh, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as shlib
 from repro_torch.dist.compression import fake_quantize_int8
 from repro_torch.models import common
 from repro_torch.models.api import Model
@@ -82,6 +83,32 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         return {**metrics, **opt_metrics, "loss": loss}
 
     return train_step
+
+
+def shardings_for(model: Model, mesh, batch_spec):
+    """((params, opt_state, batch) specs, (params, opt_state) ``meta``
+    shapes) on ``mesh``, in the JAX package's pytree layout: the
+    parameters by :data:`~repro_torch.dist.sharding.RULES`, the fp32
+    master weights and moments as their parameters, the step
+    replicated, and the batch's leading dim over the data axes."""
+    params_axes = model.axes()
+    params_shapes = model.shapes()
+    p_sh = shlib.tree_shardings(params_axes, params_shapes, mesh)
+
+    def fp32(tree):
+        if isinstance(tree, dict):
+            return {k: fp32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [fp32(v) for v in tree]
+        return torch.empty(tree.shape, dtype=torch.float32, device="meta")
+    opt_shapes = {k: fp32(params_shapes) for k in ("master", "mu", "nu")}
+    opt_shapes["step"] = torch.empty((), dtype=torch.int32, device="meta")
+    opt_axes = optlib.state_axes(params_axes)
+    o_sh = {k: shlib.tree_shardings(opt_axes[k], opt_shapes[k], mesh)
+            for k in ("master", "mu", "nu")}
+    o_sh["step"] = shlib.replicated(mesh)
+    b_sh = shlib.batch_sharding(mesh, batch_spec)
+    return (p_sh, o_sh, b_sh), (params_shapes, opt_shapes)
 
 
 

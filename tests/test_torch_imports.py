@@ -37,6 +37,31 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert int(n_modules) >= 42 and leaked.strip() == "[]"
 
 
+_IMPORT_EXAMPLES = """
+import importlib.util, pathlib, sys
+paths = sorted(pathlib.Path(sys.argv[1]).glob("torch_*.py"))
+for path in paths:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(paths), leaked)
+sys.exit(1 if leaked else 0)
+"""
+
+
+def test_examples_import_neither_jax_nor_the_reference():
+    """``examples/torch_*.py`` stand on the port alone."""
+    examples = SRC.parent / "examples"
+    r = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES,
+                        str(examples)], capture_output=True, text=True,
+                       env={**os.environ, "PYTHONPATH": str(SRC)},
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_examples, leaked = r.stdout.split(" ", 1)
+    assert int(n_examples) == 4 and leaked.strip() == "[]"
+
+
 def test_entry_points_default_to_the_card():
     """``device="cuda"`` is the default everywhere; with no GPU it raises
     (nothing falls back to the CPU)."""
