@@ -141,6 +141,25 @@ Phases (any failure exits non-zero; no phase catches its own):
      ``core.model_gemms``.  Each example's launches go on a line of
      their own.
 
+ 13. the array mesh as ranks (``dist.ranks``; it runs right after phase
+     9, on phase 4's weights): ranks sharing the card over gloo, spawned
+     (``dist.ranks.spawn``) 2 and then 4 at a time, each loading the
+     kernels phase 1 built.  On each: phase 9's sharded programs
+     (``MESH_CHECK_GEMMS``, both dataflows, axes m, n and k) through
+     ``CudaBackend.run_sharded`` over the ranks, torch.equal on every
+     rank to the sequential path in this process and within rtol 2e-4,
+     atol 2e-4 + 2e-4·k of the oracle, one nest_gemm a rank a program
+     by the counters; phase 9's chaos serve (an array goes down at tick
+     2), its checksums, one degrade, and nothing sharded launched after
+     it by the rank left outside.  On 4 ranks also full-width gemma-7b
+     on ``ArrayMesh(4)`` served by the Scheduler on every rank (phase
+     4's weights mapped into each rank from the parent's card memory),
+     checksums equal on every rank and to phases 9 and 4, launches
+     equal to the rank's shards, each rank's peak card memory beside
+     phase 9's, rank 0's ms a tick and its collectives' share; and
+     ``compressed_dp_allreduce`` over data = 4 on the card, torch.equal
+     to the ordered mean of the ranks' round trips, identical on all.
+
 Phases 10 to 12 run last, after phase 9's weights are freed, and free
 what they make.  Ends with the ``kernels`` JSON line (a row per route, each with
 its own path's launches and what its times were taken at), the card's
@@ -153,6 +172,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
+import hashlib
 import importlib.util
 import json
 import os
@@ -178,6 +199,10 @@ from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core import isa, mapper, workloads  # noqa: E402
 from repro_torch.core import program as programlib  # noqa: E402
 from repro_torch.dist import ArrayMesh  # noqa: E402
+from repro_torch.dist import compressed_dp_allreduce  # noqa: E402
+from repro_torch.dist import ranks as dist_ranks  # noqa: E402
+from repro_torch.dist.compression import fake_quantize_int8  # noqa: E402
+from repro_torch.dist.sharding import abstract_mesh  # noqa: E402
 from repro_torch.dist.elastic import (load_serving_snapshot,  # noqa: E402
                                       save_serving_snapshot)
 from repro_torch.faults import FaultInjector, FaultPlan  # noqa: E402
@@ -191,11 +216,13 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.core.model_gemms import gemm_workloads  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.mesh import device_mesh as launch_device_mesh  # noqa: E402,E501
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import DecoderLayer  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.serve import expand_cache  # noqa: E402
 from repro_torch.runtime import (ModelExecutable, ProgramCache,  # noqa: E402
                                  Scheduler, autotune_segment, segment_key)
@@ -1428,27 +1455,35 @@ def autotune_phase(untuned_sums: dict, fw_cells) -> dict:
 MESH_CHECK_GEMMS = (0, 41, 54, 58)
 
 
+def mesh_check_programs():
+    """(ci_suite index, {name: Program}, host operands) of each
+    ``MESH_CHECK_GEMMS`` GEMM: its searched Program and a forced WO-S and
+    IO-S lowering, on seeded numpy inputs."""
+    cfg = feather_config(4, 16)
+    suite = workloads.ci_suite()
+    for idx in MESH_CHECK_GEMMS:
+        g = suite[idx]
+        progs = {"searched": mapper.search(g, cfg).program} | {
+            df.name: programlib.lower(g, mapper.MappingChoice(
+                df=df, vn=4, m_t=8, k_t=8, n_t=8, n_kg=1, n_nb=1, dup=4),
+                cfg) for df in (isa.Dataflow.WOS, isa.Dataflow.IOS)}
+        gen = torch.Generator().manual_seed(idx)
+        t = {"I": torch.randn(g.m, g.k, generator=gen).numpy(),
+             "W": torch.randn(g.k, g.n, generator=gen).numpy()}
+        yield idx, progs, t
+
+
 def mesh_cross_check() -> None:
     """``backends.cross_check`` sharded on the card: interpreter == cuda
     == oracle on 2 and 4 arrays along every axis, for each GEMM's
     searched Program and a forced WO-S and IO-S lowering.  The inputs are
-    numpy arrays, so every N split cuts columns of a fresh device tensor
-    (a view that is not contiguous) for nest_gemm."""
-    cfg = feather_config(4, 16)
-    suite = workloads.ci_suite()
+    numpy arrays, so every N split cuts columns of a host array and
+    moves them to the card (a contiguous copy) for nest_gemm."""
     worst: dict[str, float] = {}
     n_runs = 0
     t0 = time.perf_counter()
-    for idx in MESH_CHECK_GEMMS:
-        g = suite[idx]
-        progs = [mapper.search(g, cfg).program] + [
-            programlib.lower(g, mapper.MappingChoice(
-                df=df, vn=4, m_t=8, k_t=8, n_t=8, n_kg=1, n_nb=1, dup=4),
-                cfg) for df in (isa.Dataflow.WOS, isa.Dataflow.IOS)]
-        gen = torch.Generator().manual_seed(idx)
-        t = {"I": torch.randn(g.m, g.k, generator=gen).numpy(),
-             "W": torch.randn(g.k, g.n, generator=gen).numpy()}
-        for prog in progs:
+    for _, progs, t in mesh_check_programs():
+        for prog in progs.values():
             for n in (2, 4):
                 for axis in ("m", "n", "k"):
                     errs = backends.cross_check(prog, t, mesh=ArrayMesh(n),
@@ -1527,11 +1562,18 @@ def shard_launches(ex, fused: bool) -> tuple[int, int]:
             continue
         for i in seg.indices:
             sharded = ex.steps[i].sharded
-            for shard in sharded.shards:
-                g = shard.program.gemm
-                w_offset = 4 * shard.k0 * sharded.base.gemm.n
-                n_ng += 2 if ng.scratch_floats(g.m, g.k, g.n, w_offset) else 1
+            n_ng += sum(shard_ng_launches(sharded, shard)
+                        for shard in sharded.shards)
     return n_ng, n_fc
+
+
+def shard_ng_launches(sharded, shard) -> int:
+    """nest_gemm kernel launches of one shard's call: two on the
+    wide-weight path, which checks the alignment of a K split's row
+    slice of W at k0 rows."""
+    g = shard.program.gemm
+    w_offset = 4 * shard.k0 * sharded.base.gemm.n
+    return 2 if ng.scratch_floats(g.m, g.k, g.n, w_offset) else 1
 
 
 def mesh_full_width(gen, flat_sums: dict, flat_tick_ms: float,
@@ -1621,9 +1663,10 @@ def mesh_full_width(gen, flat_sums: dict, flat_tick_ms: float,
         f"every step to the CPU oracle; per-array MINISA bytes {per} sum "
         f"to {stats['minisa_bytes']} (load imbalance "
         f"{stats['load_imbalance']:.3f})")
+    peak = torch.cuda.max_memory_allocated()
     del sched, be, env, res, held, again
     torch.cuda.empty_cache()
-    return launched
+    return {"sums": sums, "tick_ms": tick_ms, "peak_bytes": peak}
 
 
 def mesh_reduced(gen, flat_sums: dict, floor_ms: float) -> dict:
@@ -1681,10 +1724,11 @@ def mesh_reduced(gen, flat_sums: dict, floor_ms: float) -> dict:
     return launched
 
 
-def chaos_and_resume() -> None:
+def chaos_and_resume() -> dict:
     """The standard fault plans on the cuda backend at reduced width
     (flat, and on 2 arrays with one going down), then a serve stopped
-    after 2 ticks, saved, loaded and resumed."""
+    after 2 ticks, saved, loaded and resumed.  Returns the checksums of
+    the serve with an array going down."""
     cfg = feather_config(4, 16)
     requests = [(4, None, None)] * 3
 
@@ -1714,6 +1758,7 @@ def chaos_and_resume() -> None:
                 assert injector.injected.get("array_down") == 1
                 assert (base_rep.n_arrays, rep.n_arrays) == (2, 1)
                 assert res["mesh_degraded"] == 1
+                mesh_chaos_sums = sums
             log(f"chaos on the card ({n} array{'s' if n > 1 else ''}): "
                 f"injected {injector.injected}, 0 unrecovered, "
                 f"{res['retries_total']} retries, mesh degraded "
@@ -1739,18 +1784,361 @@ def chaos_and_resume() -> None:
         log(f"snapshot: a serve stopped after 2 ticks, saved (no .tmp left),"
             f" loaded and resumed in a fresh Scheduler finishes with the "
             f"uninterrupted checksums {sums}")
+    return mesh_chaos_sums
 
 
 def mesh_phase(gen, flat_sums: dict, flat_tick_ms: float, weights: tuple,
-               reduced_sums: dict, floor_ms: float) -> None:
+               reduced_sums: dict, floor_ms: float) -> dict:
+    """Phase 9; returns what phase 13 holds its ranks against: the
+    full-width mesh serve's checksums, tick and peak memory, and the
+    chaos serve's checksums."""
     stage("phase 9: sharded cross_checks")
     mesh_cross_check()
     stage("phase 9: full width on 4 arrays")
-    mesh_full_width(gen, flat_sums, flat_tick_ms, weights)
+    full = mesh_full_width(gen, flat_sums, flat_tick_ms, weights)
     stage("phase 9: reduced cell on 4 and 2 arrays")
     mesh_reduced(gen, reduced_sums, floor_ms)
     stage("phase 9: chaos and resume")
-    chaos_and_resume()
+    return full | {"chaos_sums": chaos_and_resume()}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the array mesh as ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: a collective's time limit on the ranks, and the parent's deadline for
+#: each spawn's ranks to finish
+RANK_TIMEOUT_S = 120
+RANK_DEADLINE_S = 480
+#: phase 9's full-width mesh serve: 4 requests of 8 decode steps
+FW_REQUESTS = [(8, None, seed) for seed in range(4)]
+#: phase 9's chaos serve (``chaos_and_resume``): 3 requests of 4 steps
+CHAOS_REQUESTS = [(4, None, None)] * 3
+#: the gradients phase 13's compressed all-reduce averages, each rank
+#: its own: gemma-7b's d_model^2 projection in fp32 and in bf16, a bias
+GRADS = {"w": ((3072, 3072), torch.float32),
+         "h": ((3072, 3072), torch.bfloat16),
+         "b": ((3072,), torch.float32)}
+
+
+def shard_map_launches() -> float:
+    """The sharded launches this process counted (one a rank a sharded
+    program, ``CudaBackend.run_sharded`` over a mesh of ranks)."""
+    return obs_metrics.counter("backend_launches_total").value(
+        kernel="nest_gemm_shard_map")
+
+
+def rank_launches(ex, rank: int, fused: bool) -> tuple[int, int]:
+    """(nest_gemm kernel launches, sharded programs launched) one pass of
+    the mesh stream ``ex`` makes on ``rank``: its own shard of each
+    sharded step (none past a narrow step's shards); a fused segment
+    (when ``fused``) runs whole on every rank, by fused_chain."""
+    n_ng = n_sm = 0
+    for seg in ex.segments:
+        if fused and seg.fused is not None:
+            continue
+        for i in seg.indices:
+            sharded = ex.steps[i].sharded
+            if rank < sharded.n_shards:
+                n_ng += shard_ng_launches(sharded, sharded.shards[rank])
+                n_sm += 1
+    return n_ng, n_sm
+
+
+def rank_gemms(rank: int, n: int, device: str) -> dict:
+    """Phase 9's sharded cross_check programs on this rank of ``n``: the
+    output, and nest_gemm's launches by the kernel's count and the
+    sharded path's, beside what this rank's shard should launch."""
+    out = {}
+    for idx, progs, t in mesh_check_programs():
+        for name, prog in progs.items():
+            for axis in ("m", "n", "k"):
+                sharded = programlib.shard_program(prog, ArrayMesh(n),
+                                                   axis=axis)
+                be = CudaBackend(prog.cfg, device=device)
+                k0, l0 = ng.launches, shard_map_launches()
+                res = be.run_sharded(sharded, t)[prog.out_name]
+                mine = rank < sharded.n_shards
+                out[(idx, name, axis)] = {
+                    "out": res.cpu().numpy(), "ng": ng.launches - k0,
+                    "label": shard_map_launches() - l0,
+                    "want_ng": (shard_ng_launches(
+                        sharded, sharded.shards[rank]) if mine else 0),
+                    "want_label": int(mine)}
+    return out
+
+
+def rank_full_width(rank: int, n: int, weights: tuple, device: str) -> dict:
+    """Full-width gemma-7b on ``ArrayMesh(n)`` served by the Scheduler on
+    this rank, on phase 4's weights (mapped from the parent's card
+    memory): checksums, launches against this rank's shards, peak card
+    memory of this rank's own allocations, decode ms a tick and the
+    collectives' part of it."""
+    cfg = feather_config(16, 256)
+    cache = ProgramCache()
+    prefill, decode = (ModelExecutable.for_cell(
+        "gemma-7b", shape, cfg, cache=cache, reduce_model=False,
+        mesh=ArrayMesh(n)) for shape in ("prefill_tiny", "decode_tiny"))
+    torch.cuda.reset_peak_memory_stats()
+    sched = Scheduler(prefill, decode, max_concurrent=4, weights=weights,
+                      device=device)
+    in_decode = [0.0]
+    step = sched._decode_step
+
+    def timed_step(a):
+        c0 = dist_ranks.collective_seconds()
+        step(a)
+        in_decode[0] += dist_ranks.collective_seconds() - c0
+    sched._decode_step = timed_step
+    k0, l0 = ng.launches, shard_map_launches()
+    sums, rep = serve(sched, FW_REQUESTS)
+    (pre_ng, pre_sm), (dec_ng, dec_sm) = (
+        rank_launches(ex, rank, sched.use_fused) for ex in (prefill, decode))
+    passes = len(FW_REQUESTS)      # one prompt chunk a request
+    ticks = max(rep.decode_ticks, 1)
+    out = {"sums": sums, "ng": ng.launches - k0,
+           "label": shard_map_launches() - l0,
+           "want_ng": passes * pre_ng + rep.decode_steps_total * dec_ng,
+           "want_label": passes * pre_sm + rep.decode_steps_total * dec_sm,
+           "tick_ms": rep.decode_wall_s / ticks * 1e3,
+           "collective_ms": in_decode[0] / ticks * 1e3,
+           "ticks": rep.decode_ticks,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    # the parent's weights go before the rank exits, or the parent finds
+    # its shared tensors never released
+    del sched
+    for w in weights:
+        w.clear()
+    gc.collect()
+    out["gather_floor_ms"] = gather_floor(device)
+    return out
+
+
+def gather_floor(device: str, reps: int = 20) -> dict:
+    """ms of one all-gather with nothing else running on the ranks, for
+    the full-width decode step's smallest and largest piece (qk's [1, 4]
+    and lm_head's [1, 64000] N slices, fp32): what the collective costs
+    without waiting for a peer, staged from ``device`` and from host
+    memory (gloo alone)."""
+    out = {}
+    for where in (device, "cpu"):
+        for width in (4, 64000):
+            piece = torch.zeros((1, width), device=where)
+            dist_ranks.all_gather(piece)
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dist_ranks.all_gather(piece)
+            out[f"{where} {width}"] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def rank_chaos(rank: int, n: int, device: str) -> dict:
+    """Phase 9's chaos serve of the reduced cell on ``ArrayMesh(n)``
+    with the standard fault plan, whose ``array_down`` at tick 2 leaves
+    rank n - 1 outside the mesh: checksums, the degrade, and the sharded
+    launches after it."""
+    cache = ProgramCache()
+    prefill, decode = (ModelExecutable.for_cell(
+        "gemma-7b", shape, feather_config(4, 16), cache=cache,
+        mesh=ArrayMesh(n)) for shape in ("prefill_tiny", "decode_tiny"))
+    injector = FaultInjector(FaultPlan.standard(0, n_arrays=n))
+    sched = Scheduler(prefill, decode, max_concurrent=2, seed=7,
+                      faults=injector, device=device)
+    marks = []
+    degrade = sched._degrade_mesh
+
+    def degrade_and_mark(site):
+        degrade(site)
+        marks.append((ng.launches, shard_map_launches()))
+    sched._degrade_mesh = degrade_and_mark
+    sums, rep = serve(sched, CHAOS_REQUESTS)
+    res = rep.summary()["resilience"]
+    return {"sums": sums, "mesh_degraded": res["mesh_degraded"],
+            "n_arrays": rep.n_arrays, "injected": dict(injector.injected),
+            "unrecovered": injector.unrecovered(),
+            "ng_after": ng.launches - marks[0][0],
+            "label_after": shard_map_launches() - marks[0][1]}
+
+
+def rank_grads(rank: int, device: str) -> dict:
+    gen = torch.Generator(device=device).manual_seed(100 + rank)
+    return {name: torch.randn(shape, device=device,
+                              generator=gen).to(dtype)
+            for name, (shape, dtype) in GRADS.items()}
+
+
+def rank_compress(rank: int, n: int, device: str) -> dict:
+    """``compressed_dp_allreduce`` over a data = n ``DeviceMesh`` (gloo:
+    the ranks share the card), each rank on its own gradients on the
+    card: held torch.equal to the mean of every rank's round trip summed
+    in rank order (this rank draws the others' gradients from their
+    seeds); a digest of the result, and its ms."""
+    mesh = launch_device_mesh(abstract_mesh((n,), ("data",)), "cpu")
+    mine = rank_grads(rank, device)
+    got = compressed_dp_allreduce(mine, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = compressed_dp_allreduce(mine, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    acc = {name: torch.zeros(shape, device=device)
+           for name, (shape, _) in GRADS.items()}
+    for r in range(n):
+        for name, g in rank_grads(r, device).items():
+            acc[name] += fake_quantize_int8(g).float()
+    equal = all(torch.equal(got[name], (acc[name] / n).to(dtype))
+                and got[name].dtype == dtype
+                and got[name].device == mine[name].device
+                and torch.equal(again[name], got[name])
+                for name, (_, dtype) in GRADS.items())
+    digest = hashlib.sha256(b"".join(
+        got[name].contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        for name in GRADS)).hexdigest()
+    return {"equal": equal, "digest": digest, "ms": ms,
+            "bytes": sum(g.numel() * g.element_size()
+                         for g in mine.values())}
+
+
+def rank_main(rank: int, n: int, weights, device: str) -> dict:
+    """What each rank of phase 13 runs, in one spawn a world size."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"gemms": rank_gemms(rank, n, device),
+           "chaos": rank_chaos(rank, n, device)}
+    if weights is not None:
+        out["full"] = rank_full_width(rank, n, weights, device)
+        out["compress"] = rank_compress(rank, n, device)
+    return out
+
+
+def sequential_gemms(device: str) -> dict:
+    """Phase 9's sharded programs in this process, where no group is up
+    (the shards one after another): each output and the oracle."""
+    seq = {}
+    for idx, progs, t in mesh_check_programs():
+        for name, prog in progs.items():
+            oracle = torch.from_numpy(t["I"] @ t["W"])
+            if prog.activation is not None:
+                oracle = prog.activation(oracle)
+            for n in (2, 4):
+                for axis in ("m", "n", "k"):
+                    sharded = programlib.shard_program(prog, ArrayMesh(n),
+                                                       axis=axis)
+                    res = CudaBackend(prog.cfg, device=device).run_sharded(
+                        sharded, t)[prog.out_name]
+                    seq[(n, idx, name, axis)] = (res.cpu(), oracle,
+                                                 prog.gemm.k)
+    return seq
+
+
+def check_rank_gemms(n: int, results: list, seq: dict) -> None:
+    worst = 0.0
+    for rank, res in enumerate(results):
+        for (idx, name, axis), r in res["gemms"].items():
+            got = torch.from_numpy(r["out"])
+            want, oracle, k = seq[(n, idx, name, axis)]
+            where = f"rank {rank} of {n}: GEMM {idx} {name} axis {axis}"
+            assert torch.equal(got, want), f"{where}: not the sequential output"
+            err = (got - oracle).abs()
+            assert bool((err <= RTOL + RTOL * k + RTOL * oracle.abs()).all()), \
+                f"{where}: max |err| {float(err.max())} against the oracle"
+            worst = max(worst, float(err.max()))
+            assert (r["ng"], r["label"]) == (r["want_ng"], r["want_label"]), \
+                (where, r["ng"], r["label"], r["want_ng"], r["want_label"])
+    per = sum(r["label"] for r in results[0]["gemms"].values())
+    log(f"ranks: {len(results[0]['gemms'])} sharded programs on each of {n} "
+        f"ranks sharing the card (gloo): every rank's output torch.equal to "
+        f"the sequential path's in one process, max |err| {worst:.3g} "
+        f"against the oracle; nest_gemm launched once a rank a program "
+        f"(rank 0: {per}), by the kernel's count and the sharded path's")
+
+
+def check_rank_chaos(n: int, results: list, chaos_sums: dict) -> None:
+    for rank, r in enumerate(results):
+        assert r["sums"] == chaos_sums, (rank, r["sums"], chaos_sums)
+        assert (r["mesh_degraded"], r["n_arrays"], r["unrecovered"]) == (
+            1, n - 1, 0), (rank, r)
+        assert r["injected"].get("array_down") == 1, r["injected"]
+    outside = results[-1]
+    assert outside["label_after"] == 0, outside
+    if n - 1 > 1:
+        assert outside["ng_after"] == 0, outside
+        assert all(r["label_after"] > 0 for r in results[:-1]), results
+    log(f"ranks: chaos on {n} ranks (the reduced cell, array_down at tick "
+        f"2): checksums equal to phase 9's chaos serve on every rank, mesh "
+        f"degraded once to {n - 1} array(s); after it rank {n - 1} launched "
+        f"{outside['label_after']:.0f} sharded programs and "
+        f"{outside['ng_after']} nest_gemm kernels (ranks inside: "
+        f"{[r['label_after'] for r in results[:-1]]} sharded programs"
+        + ("; one array left serves unsharded on every rank" if n == 2
+           else "") + ")")
+
+
+def check_rank_full_width(results: list, mesh: dict, flat_sums: dict,
+                          name_limit: str) -> None:
+    for rank, r in enumerate(results):
+        assert r["sums"] == mesh["sums"] == flat_sums, (rank, r["sums"])
+        assert (r["ng"], r["label"]) == (r["want_ng"], r["want_label"]) \
+            and r["label"] > 0, (rank, r)
+    r0 = results[0]
+    share = r0["collective_ms"] / r0["tick_ms"]
+    log(f"ranks: full-width gemma-7b on 4 ranks sharing the card "
+        f"({name_limit}): checksums equal on every rank, to phase 9's mesh "
+        f"serve in one process and to phase 4's flat serve; nest_gemm per "
+        f"rank {[r['ng'] for r in results]} kernel launches, "
+        f"{[int(r['label']) for r in results]} sharded programs, each its "
+        f"rank's shards exactly")
+    log(f"ranks: peak card memory of each rank's own allocations "
+        f"{[round(r['peak_bytes'] / 2**30, 2) for r in results]} GiB (the "
+        f"weights are phase 4's, mapped from the parent) against "
+        f"{mesh['peak_bytes'] / 2**30:.2f} GiB for phase 9's mesh serve "
+        f"in one process; {name_limit}")
+    log(f"ranks: rank 0 decode {r0['tick_ms']:.3f} ms a tick over "
+        f"{r0['ticks']} ticks (phase 9 in one process: "
+        f"{mesh['tick_ms']:.3f}), {r0['collective_ms']:.3f} ms of it "
+        f"({100 * share:.1f}%) in collectives, waiting for the peers "
+        f"included; ranks {[round(r['tick_ms'], 3) for r in results]} ms a "
+        f"tick; an all-gather with the ranks otherwise idle, ms by source "
+        f"and piece width: "
+        f"{({w: round(v, 4) for w, v in r0['gather_floor_ms'].items()})}"
+        f"; {name_limit}")
+
+
+def check_rank_compress(results: list, name_limit: str) -> None:
+    assert all(r["equal"] for r in results), [r["equal"] for r in results]
+    assert len({r["digest"] for r in results}) == 1, results
+    log(f"ranks: compressed_dp_allreduce over data = {len(results)} on the "
+        f"card: torch.equal to the ordered mean of every rank's int8 round "
+        f"trip, identical on every rank (digest "
+        f"{results[0]['digest'][:12]}); {results[0]['bytes'] / 2**20:.1f} "
+        f"MiB a rank, {[round(r['ms'], 2) for r in results]} ms a call; "
+        f"{name_limit}")
+
+
+def rank_phase(weights: tuple, mesh: dict, flat_sums: dict,
+               name_limit: str, device: str = "cuda") -> None:
+    """Phase 13: 2 and 4 ranks sharing the card over gloo, each spawn
+    one process a rank (the kernels are built: the ranks load them)."""
+    stage("phase 13: the array mesh as ranks sharing the card")
+    seq = sequential_gemms(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (2, 4):
+            t0 = time.perf_counter()
+            results = dist_ranks.spawn(
+                rank_main, n, tmp, args=(weights if n == 4 else None, device),
+                device=device, timeout_s=RANK_TIMEOUT_S,
+                deadline_s=RANK_DEADLINE_S)
+            log(f"ranks: {n} ranks spawned, ran and joined in "
+                f"{time.perf_counter() - t0:.1f} s")
+            check_rank_gemms(n, results, seq)
+            check_rank_chaos(n, [r["chaos"] for r in results],
+                             mesh["chaos_sums"])
+            if n == 4:
+                check_rank_full_width([r["full"] for r in results], mesh,
+                                      flat_sums, name_limit)
+                check_rank_compress([r["compress"] for r in results],
+                                    name_limit)
 
 
 # ---------------------------------------------------------------------------
@@ -3051,8 +3439,9 @@ def main(argv) -> int:
     interpreter_phase(untuned_sums)
     stage("phase 8: autotune")
     autotune_phase(untuned_sums, (fw_pre, fw_dec))
-    mesh_phase(gen, fw_sums, fw_tick_ms, fw_weights, untuned_sums,
-               k3["floor_ms"])
+    mesh = mesh_phase(gen, fw_sums, fw_tick_ms, fw_weights, untuned_sums,
+                      k3["floor_ms"])
+    rank_phase(fw_weights, mesh, fw_sums, name_limit)
     del fw_weights
     torch.cuda.empty_cache()
     zoo, zoo_by_arch = zoo_phase(name_limit)

@@ -16,7 +16,9 @@ the whole tile lattice runs as a single kernel launch per layer --
                                       accumulator orientation
   fused segment                   ->  one ``fused_chain`` launch
   sharded Program (ArrayMesh)     ->  one ``nest_gemm`` launch per shard,
-                                      each on its array's sub-backend
+                                      each on its array's sub-backend; on
+                                      ranks of a process group, one a
+                                      rank and an all-gather
   M-sharded fused segment         ->  one ``fused_chain`` launch per array
   batched decode attention        ->  one ``flash_decode`` launch
   ... with the Wo projection      ->  one ``flash_decode_proj`` launch
@@ -41,6 +43,7 @@ import torch
 from repro_torch.backends.base import Backend
 from repro_torch.core import isa
 from repro_torch.core import program as programlib
+from repro_torch.dist import ranks as dist_ranks
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import ACT_FNS, FUSED_ACT_FNS
 from repro_torch.obs import metrics as obs_metrics
@@ -376,24 +379,31 @@ class CudaBackend(Backend):
         w = self._resolve(comp.weight_name, tensors, False)
         with trace.span("launch", kernel="nest_gemm", grid=comp.grid,
                         out=comp.out_name) as sp:
-            out = kernel_ops.nest_gemm(x, w, bk=comp.bk,
-                                       out_block_t=comp.out_block_t,
-                                       act=comp.fused_act)
+            out = self._nest_gemm(comp, x, w)
             if sp:
                 self._sync()
                 sp.set(n_launches=self.n_launches)
-        if comp.out_block_t:
-            # the kernel stored the IO-S (search-oriented) accumulator; the
-            # final Write's host-facing view is its transpose
-            if comp.host_act is not None:
-                out = comp.host_act(out)
-            out = out.T.contiguous()
-        elif comp.host_act is not None:
-            out = comp.host_act(out)
+        out = self._host_view(comp, out)
         self.outputs[comp.out_name] = out
         if comp.commit:
             self._committed = out
         return self.outputs
+
+    @staticmethod
+    def _nest_gemm(comp: CompiledProgram, x, w) -> torch.Tensor:
+        return kernel_ops.nest_gemm(x, w, bk=comp.bk,
+                                    out_block_t=comp.out_block_t,
+                                    act=comp.fused_act)
+
+    @staticmethod
+    def _host_view(comp: CompiledProgram, out) -> torch.Tensor:
+        """The kernel's output as the final Write presents it: under
+        IO-S the kernel stored the (search-oriented) accumulator, whose
+        transpose is the host-facing view; row-wise activations apply in
+        the accumulator orientation."""
+        if comp.host_act is not None:
+            out = comp.host_act(out)
+        return out.T.contiguous() if comp.out_block_t else out
 
     # -- multi-array execution ----------------------------------------------
     def _make_shard_backend(self) -> "CudaBackend":
@@ -401,28 +411,105 @@ class CudaBackend(Backend):
                            max_block=self.max_block,
                            compile_cache=self.compile_cache)
 
+    def run_sharded(self, sharded, tensors=None
+                    ) -> dict[str, torch.Tensor]:
+        """One ``nest_gemm`` launch a rank over the array mesh: the twin
+        of the JAX package's ``shard_map`` launch.
+
+        When ranks of a process group back the arrays
+        (``ArrayMesh.device_mesh()``), rank ``a`` launches shard ``a``
+        alone -- the very launch the sequential path makes for it: its
+        Program's own geometry on its own slices (``shard_map`` needs one
+        shape on every device and pads the split rank; ranks do not, and
+        a padded K would sum in another order) -- and the output is
+        assembled on every rank: M/N slices by an all-gather of pieces
+        padded to the uniform per-array extent, then cropped; K partials
+        by an all-gather summed in array order from zeros, as the
+        sequential path sums them (a reduction's order is the
+        transport's).  So every rank holds the same output, bit-equal to
+        :meth:`Backend.run_sharded`'s.  The hoisted epilogue activation
+        then runs on it.  Ranks past a degraded mesh's arrays launch
+        nothing and receive the output from rank 0.  Without a mesh of
+        ranks, or with one shard, the shards run one after another."""
+        dm = sharded.mesh.device_mesh()
+        if dm is None or sharded.n_shards < 2:
+            return super().run_sharded(sharded, tensors)
+        g = sharded.base.gemm
+        n, axis = sharded.mesh.n_arrays, sharded.axis
+        coord = dm.get_coordinate()
+        with trace.span("launch", kernel="nest_gemm_shard_map", n_arrays=n,
+                        axis=axis, out=sharded.out_name) as sp:
+            if coord is not None:
+                out = self._shard_launch(sharded, coord[0], tensors,
+                                         dm.get_group())
+            else:   # outside a degraded mesh: rank 0's output comes below
+                out = torch.empty((g.m, g.n), dtype=torch.float32,
+                                  device=self.device)
+            if n < dist_ranks.world_size():
+                out = dist_ranks.broadcast(out, src=0)
+            if sp:
+                sp.set(n_launches=self.n_launches)
+        if sharded.epilogue_act is not None:
+            out = sharded.epilogue_act(out)
+        self.outputs[sharded.out_name] = out
+        return self.outputs
+
+    def _shard_launch(self, sharded, a: int, tensors, group
+                      ) -> torch.Tensor:
+        """Array ``a``'s launch and the gather: the assembled [m, n]
+        output before the epilogue."""
+        g = sharded.base.gemm
+        n, axis = sharded.mesh.n_arrays, sharded.axis
+        chunk = -(-{"m": g.m, "n": g.n, "k": g.k}[axis] // n)
+        piece = torch.zeros({"m": (chunk, g.n), "n": (g.m, chunk),
+                             "k": (g.m, g.n)}[axis],
+                            dtype=torch.float32, device=self.device)
+        if a < sharded.n_shards:   # a rank past a narrow GEMM's shards
+            shard = sharded.shards[a]
+            comp = self.compile(shard.program)
+            t = self._shard_tensors(sharded, shard, tensors)
+            self.n_launches += 1
+            _LAUNCHES.inc(1, kernel="nest_gemm_shard_map")
+            o = self._host_view(comp, self._nest_gemm(
+                comp, self._resolve(comp.input_name, t, False),
+                self._resolve(comp.weight_name, t, False)))
+            piece[:o.shape[0], :o.shape[1]] = o
+        parts = dist_ranks.all_gather(piece, group)
+        if axis == "k":
+            out = torch.zeros((g.m, g.n), dtype=torch.float32,
+                              device=self.device)
+            for p in parts:
+                out += p
+            return out
+        return torch.cat(parts, dim=0 if axis == "m" else 1)[:g.m, :g.n]
+
     def _shard_tensors(self, sharded, shard, tensors) -> dict:
         """A shard's operands: its 'I' slice as ``Shard.slice_tensors``
         cuts it (the kernel wrapper copies a K split's column slice per
         call), its 'W' slice through :meth:`_weight_slice`."""
         out = shard.slice_tensors(tensors)
         if "W" in out:
-            out["W"] = self._weight_slice(self.to_device(tensors["W"]),
-                                          sharded.mesh, shard)
+            w = tensors["W"]
+            if not isinstance(w, torch.Tensor):
+                w = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+            out["W"] = self._weight_slice(w, sharded.mesh, shard)
         return out
 
     def _weight_slice(self, w: torch.Tensor, mesh, shard) -> torch.Tensor:
-        """``w[k0:k1, n0:n1]``, contiguous.  A row slice is a view; the
-        column slice of an N split is copied once per source tensor and
-        mesh, and kept while the source lives unmodified on that mesh:
-        the entry holds the source by a weak reference (a KV operand,
-        made per call, is copied per call, and its entry goes at the
-        next miss), checks its identity and version counter (an
+        """``w[k0:k1, n0:n1]``, contiguous float32 on this device.  A
+        contiguous slice of a float32 weight on this device is a view;
+        any other slice (an N split's columns, or a slice of a weight on
+        the host, which moves only the slice) is copied once per source
+        tensor and mesh, and kept while the source lives unmodified on
+        that mesh: the entry holds the source by a weak reference (a KV
+        operand, made per call, is copied per call, and its entry goes at
+        the next miss), checks its identity and version counter (an
         in-place update of a weight copies it again), and is made anew
         when the source is first cut for another mesh (a failover's
         re-lowering drops the old mesh's copies)."""
         view = w[shard.k0:shard.k1, shard.n0:shard.n1]
-        if view.is_contiguous():
+        if (view.device == self.device and view.dtype == torch.float32
+                and view.is_contiguous()):
             return view
         key = id(w)
         entry = self._slices.get(key)
@@ -435,7 +522,9 @@ class CudaBackend(Backend):
         bounds = (shard.k0, shard.k1, shard.n0, shard.n1)
         copy = entry[3].get(bounds)
         if copy is None:
-            copy = entry[3][bounds] = view.contiguous()
+            copy = entry[3][bounds] = torch.empty(
+                view.shape, dtype=torch.float32,
+                device=self.device).copy_(view)
             self.n_slice_copies += 1
         return copy
 

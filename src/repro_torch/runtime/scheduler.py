@@ -57,6 +57,7 @@ import time
 import numpy as np
 
 from repro_torch.core import perf
+from repro_torch.dist import ranks as dist_ranks
 from repro_torch.faults.inject import (CircuitBreaker, FaultError, FaultInjector,
                                  PoisonedOutputError, check_finite)
 from repro_torch.faults.plan import FaultPlan
@@ -592,6 +593,10 @@ class Scheduler:
     sharded (per-request; batching auto-disables) and the report adds
     per-array instruction traffic, modelled cycles and the
     load-imbalance factor -- the multi-array serving simulator view.
+    On ranks of a process group (``dist.ranks``) the Scheduler runs on
+    every rank, from the same seeds, in step: the CUDA backend splits
+    each sharded launch across the ranks, everything else runs on each,
+    and rank 0 alone decides which requests are past their deadlines.
     """
 
     def __init__(self, prefill: ModelExecutable, decode: ModelExecutable,
@@ -959,10 +964,18 @@ class Scheduler:
             self._kv_spikes.remove((until, held))
             self.injector.mark_recovered("kv_exhaust", pages=len(held))
 
-    def _overdue(self, a: _Active) -> bool:
-        d = a.req.deadline_s
-        return (d is not None
-                and time.perf_counter() - a.t_start > d)
+    def _overdue(self, active: list[_Active]) -> set[int]:
+        """The rids of unfinished requests past their deadline.  On ranks
+        of a process group every rank runs this loop in step (SPMD), and
+        a decision taken from each rank's own clock would break the step:
+        rank 0 decides, once a tick, and the others follow."""
+        now = time.perf_counter()
+        rids = {a.req.rid for a in active
+                if a.req.deadline_s is not None and a.status == "ok"
+                and now - a.t_start > a.req.deadline_s}
+        if dist_ranks.world_size() > 1:
+            rids = dist_ranks.broadcast_object(rids, src=0)
+        return rids
 
     # -- snapshot / resume ----------------------------------------------------
     def snapshot(self) -> dict:
@@ -1128,11 +1141,12 @@ class Scheduler:
             # 2) retire finished requests mid-batch, evicting their KV;
             #    overdue requests retire as timed_out, and requests past
             #    their retry budget as failed -- neither wedges the loop
+            overdue = self._overdue(active)
             for a in list(active):
                 finished = (a.prefill_done
                             and a.decoded >= a.req.decode_steps)
                 if not finished:
-                    if a.status == "ok" and self._overdue(a):
+                    if a.status == "ok" and a.req.rid in overdue:
                         a.status = "timed_out"
                         trace.instant("timeout", ("request", a.req.rid),
                                       decoded=a.decoded)

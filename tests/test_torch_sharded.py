@@ -431,17 +431,18 @@ def test_executable_sharded_matches_stream_oracle(mesh_decode, backend):
 
 
 # ---------------------------------------------------------------------------
-# One card per array, where the host has them; else the sequential path
+# One rank per array, where a process group is up; else the sequential path
+# (tests/test_torch_ranks.py runs the ranks)
 # ---------------------------------------------------------------------------
 
 def test_device_mesh_absent_and_fallback_matches_oracle():
-    """This host has fewer CUDA devices than arrays, so ``device_mesh()``
-    is None and every backend takes the sequential per-shard path: for
+    """No process group is up in this process, so ``device_mesh()`` is
+    None and every backend takes the sequential per-shard path: for
     both dataflows and every axis it matches the oracle and the
     reference's fallback."""
-    n_dev = torch.cuda.device_count()
-    mesh = ArrayMesh(min(max(n_dev + 1, 2), 4))
-    assert mesh.device_mesh() is None and n_dev < mesh.n_arrays
+    mesh = ArrayMesh(2)
+    assert not torch.distributed.is_initialized()
+    assert mesh.device_mesh() is None
     for df in ("WOS", "IOS"):
         jprog, prog = _lowered((24, 16, 20), df=df)
         t = _tensors(24, 16, 20, 7)
@@ -463,6 +464,7 @@ def test_array_mesh_validation():
         ArrayMesh(0)
     assert ArrayMesh(1).device_mesh() is None
     assert ArrayMesh(2).shape == (2,)
+    # without a process group: one array per visible card, one at least
     assert ArrayMesh.host().n_arrays == max(1, torch.cuda.device_count())
     assert repr(ArrayMesh(3)) == repr(JMesh(3))
     with pytest.raises(ValueError, match="axis"):
