@@ -160,8 +160,30 @@ Phases (any failure exits non-zero; no phase catches its own):
      ``compressed_dp_allreduce`` over data = 4 on the card, torch.equal
      to the ordered mean of the ranks' round trips, identical on all.
 
-Phases 10 to 12 run last, after phase 9's weights are freed, and free
-what they make.  Ends with the ``kernels`` JSON line (a row per route, each with
+ 14. training on a mesh (``launch.train.Run`` under a process group,
+     its parameters, fp32 master weights and moments DTensors placed by
+     ``dist.sharding``'s rules): zamba2-1.2b at full width and depth 7
+     (six Mamba-2 blocks, one application of the shared block, a tail
+     block), global batch 4 x 1024, on 4 ranks sharing the card over
+     ``dist.ranks.HOST_STAGED`` (every collective staged through host
+     memory over gloo), on the (2, 2) ``("data", "model")`` mesh and on
+     the (1, 4) one ``make_host_mesh`` gives 4 ranks.  First one process
+     without a mesh: one step's gradients in bf16 and in fp32 (kept on
+     the card, mapped into the ranks), and ``Run``'s 3 fp32 steps.  On
+     each mesh every rank: the same step's gradients, gathered, within
+     ``TRAIN_GRAD_TOL`` (relative L2) of one process's; ``Run``'s 3 fp32
+     steps, the losses within ``MESH_LOSS_RTOL`` of one process's and
+     falling, each rank launching flash_attention, flash_attention_bwd,
+     mamba_scan and mamba_scan_bwd on its local shard exactly as often
+     as ``train_launches`` says for one process, each step's exactly;
+     rank 0's ms a step, its collectives a step and their share, each
+     rank's peak card memory (logged, no limit: ranks sharing one card
+     say nothing of a mesh of cards).  The (2, 2) run's checkpoint
+     (gathered by every rank, written by rank 0) restored on (1, 4) and
+     in one process: every array torch.equal to the file.
+
+Phases 10 to 12 and 14 run last, after phase 9's weights are freed, and
+free what they make.  Ends with the ``kernels`` JSON line (a row per route, each with
 its own path's launches and what its times were taken at), the card's
 name and power limit, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -224,6 +246,7 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import DecoderLayer  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.serve import expand_cache  # noqa: E402
+from repro_torch.train import optimizer as optlib  # noqa: E402
 from repro_torch.runtime import (ModelExecutable, ProgramCache,  # noqa: E402
                                  Scheduler, autotune_segment, segment_key)
 from repro_torch.runtime.autotune import _segment_tensors  # noqa: E402
@@ -3178,6 +3201,368 @@ def training_phase(device="cuda") -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training on a mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: phase 14's run: ``launch.train`` with phase 11's flags at a global batch
+#: of 4 x 1024 (each data replica of (2, 2) at phase 11's 2 x 1024), 3
+#: steps, in fp32, at ``TRAIN_GATE_DEPTH``
+MESH_TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--batch", "4", "--seq", "1024",
+                   "--lr", "1e-3", "--steps", "3", "--log-every", "1"]
+#: the two meshes of 4 ranks: each data replica at phase 11's batch, and
+#: the one ``make_host_mesh`` gives 4 ranks
+MESH_TRAIN_SHAPES = ((2, 2), (1, 4))
+#: the fp32 losses of the mesh run against one process's, relative
+MESH_LOSS_RTOL = 1e-4
+
+
+def mesh_train_cfg(dtype: str):
+    return dataclasses.replace(get_config("zamba2-1.2b"),
+                               num_layers=TRAIN_GATE_DEPTH, dtype=dtype)
+
+
+def mesh_train_args(device: str, *extra):
+    return launch_train.parse(MESH_TRAIN_ARGV + ["--device", device,
+                                                 *extra])
+
+
+def mesh_train_data(cfg) -> SyntheticLM:
+    """The batches ``launch.train`` gives ``cfg`` at ``MESH_TRAIN_ARGV``."""
+    args = mesh_train_args("cpu")
+    return SyntheticLM(DataConfig(vocab_size=min(cfg.vocab_size, 4096)),
+                       cfg, ShapeConfig("cli", args.seq, args.batch,
+                                        "train"))
+
+
+def sync(device: str) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def peak_gib(device: str) -> float:
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if device != "cpu"
+            else 0.0)
+
+
+def reset_peak(device: str) -> None:
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def leaves(tree, prefix: str = ""):
+    """(``/``-joined path, leaf) of a checkpoint tree, as the checkpoint
+    manager keys its arrays."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for key, val in items:
+        yield from leaves(val, f"{prefix}/{key}" if prefix else str(key))
+
+
+def equals_saved(tree, ckpt_dir: str, step: int) -> int:
+    """How many arrays of ``tree`` (a ``state_tree``) are torch.equal to
+    the checkpoint ``step`` in ``ckpt_dir``; raises on one that is not."""
+    import numpy as np
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
+    n = 0
+    with np.load(path) as saved:
+        for key, leaf in leaves(tree):
+            want = torch.from_numpy(saved[key])
+            got = torch.as_tensor(leaf)
+            assert torch.equal(got.to(want.dtype), want), key
+            n += 1
+        assert n == len(saved.files), (n, len(saved.files))
+    return n
+
+
+def mesh_step_grads(model, batch, mesh) -> dict:
+    """One step's loss backward on ``mesh``: {name: the whole gradient in
+    fp32} (gathered; every rank calls this)."""
+    from repro_torch.train.trainer import place_batch
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss(place_batch(batch, mesh))
+    loss.backward()
+    out = {n: p.grad.full_tensor().float()
+           for n, p in model.net.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def rel_l2(got: dict, want: dict) -> dict:
+    return {n: float((got[n] - want[n]).norm() / want[n].norm())
+            for n in got if float(want[n].norm()) > 0}
+
+
+def mesh_train_rank(rank: int, n: int, shape, ref: dict, ckpt_dir: str,
+                    resume_dir: str | None, device: str) -> dict:
+    """What each rank of phase 14 runs on a ``shape`` mesh of the ranks:
+    the transport's floor; one step's gradients in bf16 held to ``ref``'s
+    (one process's, mapped from the parent); then ``launch.train.Run``'s
+    3 fp32 steps on the mesh (the main path; the first step's gradients,
+    gathered as the optimizer receives them, held to ``ref``'s fp32
+    ones), launches counted by step, saving to ``ckpt_dir``; with
+    ``resume_dir``, a run resumed from the checkpoint another mesh saved
+    there, its state gathered and held to the file."""
+    from repro_torch.train.trainer import place, state_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    amesh = abstract_mesh(shape, ("data", "model"))
+    dmesh = launch_device_mesh(amesh, device)
+    out = {"floor": transport_floor(device), "grads": {}}
+    cfg = mesh_train_cfg("bfloat16")
+    model = build_model(cfg, device=device, generator=torch.Generator(
+        device).manual_seed(0))
+    place(model, dmesh)
+    model.requires_grad_(True)
+    got = mesh_step_grads(model, mesh_train_data(cfg).batch(0), dmesh)
+    assert all(torch.isfinite(g).all() for g in got.values())
+    out["grads"]["bfloat16"] = rel_l2(got, ref["grads"]["bfloat16"])
+    out["bf16_to_f32"] = rel_l2(got, ref["grads"]["float32"])
+    del model, got
+    reset_peak(device)
+
+    # the main path; its first step's gradients (every rank gathers them
+    # as the optimizer receives them) are the fp32 gradient gate's
+    cfg = mesh_train_cfg("float32")
+    run = launch_train.Run(mesh_train_args(device, "--ckpt-dir", ckpt_dir),
+                           cfg, mesh=amesh)
+    first = {}
+
+    def capture(opt_cfg, params, grads, state):
+        if not first:
+            first.update({n: g.full_tensor().float()
+                          for n, g in grads.items()})
+        return real_update(opt_cfg, params, grads, state)
+    real_update = optlib.update
+    a_step = train_launches(cfg, 1)
+    times, coll_s, coll_n, losses = [], [], [], []
+    last = [None, {k: 0 for k in counts()}, 0.0, 0]
+
+    def on_step(step, metrics):
+        sync(device)
+        now = time.perf_counter()
+        c = counts()
+        step_counts = {k: v - last[1][k] for k, v in c.items()}
+        assert step_counts == a_step, (rank, step, step_counts, a_step)
+        cs, cn = dist_ranks.collective_seconds(), dist_ranks.collective_calls()
+        times.append(now - last[0])
+        coll_s.append(cs - last[2])
+        coll_n.append(cn - last[3])
+        last[:] = [now, c, cs, cn]
+        losses.append(float(metrics["loss"]))
+
+    reset_counts()
+    sync(device)
+    last[0] = time.perf_counter()
+    last[2:] = [dist_ranks.collective_seconds(),
+                dist_ranks.collective_calls()]
+    before = dist_ranks.collective_totals()
+    optlib.update = capture
+    try:
+        run.train(on_step)
+    finally:
+        optlib.update = real_update
+    sync(device)
+    out["grads"]["float32"] = rel_l2(first, ref["grads"]["float32"])
+    del first
+    by_op = {op: tuple(a - b for a, b in zip(v, before.get(op, (0, 0, 0))))
+             for op, v in dist_ranks.collective_totals().items()}
+    out.update(launched=counts(), losses=losses, times=times, coll_s=coll_s,
+               coll_n=coll_n, by_op=by_op, peak_gib=peak_gib(device),
+               placements={n: str(tuple(p.placements)) for n, p in
+                           list(run.model.net.named_parameters())[:3]})
+    del run
+    reset_peak(device)
+    if resume_dir is not None:
+        resumed = launch_train.Run(mesh_train_args(
+            device, "--ckpt-dir", resume_dir, "--resume", "auto"), cfg,
+            mesh=amesh)
+        tree = state_tree(resumed.model, resumed.opt_state)
+        out["resumed"] = (resumed.start, equals_saved(tree, resume_dir,
+                                                      resumed.start))
+        del resumed, tree
+    return out
+
+
+def transport_floor(device: str, reps: int = 3) -> dict:
+    """ms of one all-gather into a tensor and one all-reduce over every
+    rank, by MiB a rank, with the ranks otherwise idle: the transport's
+    floor, which every collective of the step pays."""
+    import torch.distributed as tdist
+    out = {}
+    for mib in (1, 64):
+        x = torch.ones(mib << 18, device=device)
+        g = torch.empty(x.numel() * tdist.get_world_size(), device=device)
+        for name, fn in (("all_gather", lambda: tdist.all_gather_into_tensor(
+                g, x)), ("all_reduce", lambda: tdist.all_reduce(x))):
+            fn()
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync(device)
+            out[f"{name} {mib} MiB"] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def mesh_reference(device: str) -> dict:
+    """Phase 14's one process without a mesh: one step's gradients in bf16
+    and fp32 (kept on the card, mapped into the ranks) and ``Run``'s 3 fp32
+    steps (losses, ms a step, peak GiB)."""
+    ref = {"grads": {}}
+    for dtype in ("bfloat16", "float32"):
+        cfg = mesh_train_cfg(dtype)
+        model = build_model(cfg, device=device, generator=torch.Generator(
+            device).manual_seed(0))
+        model.requires_grad_(True)
+        ref["grads"][dtype] = step_grads(model, mesh_train_data(cfg).batch(0))
+        del model
+    reset_peak(device)
+    ref["bf16_to_f32"] = rel_l2(ref["grads"]["bfloat16"],
+                                ref["grads"]["float32"])
+    run = launch_train.Run(mesh_train_args(device), mesh_train_cfg("float32"))
+    times, losses, last = [], [], [None]
+
+    def on_step(step, metrics):
+        sync(device)
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+        losses.append(float(metrics["loss"]))
+    sync(device)
+    last[0] = time.perf_counter()
+    run.train(on_step)
+    ref.update(losses=losses, times=times, peak_gib=peak_gib(device))
+    del run
+    reset_peak(device)
+    return ref
+
+
+def check_mesh_run(shape, results: list, ref: dict, cfg, n_steps: int,
+                   name_limit: str) -> None:
+    """Phase 14's gates on one mesh's ranks: (b) the gradients, (c) the
+    losses, (d) the launches; then (f) the logs."""
+    log(f"mesh {shape}: transport floor on 4 ranks, ms "
+        f"{ {k: round(v, 2) for k, v in results[0]['floor'].items()} }")
+    tol = TRAIN_GRAD_TOL["float32"]
+    worst = [max(r["grads"]["float32"].items(), key=lambda kv: kv[1])
+             for r in results]
+    log(f"mesh {shape}: fp32 gradients of one step, gathered, against one "
+        f"process without a mesh: relative L2 median "
+        f"{statistics.median(results[0]['grads']['float32'].values()):.3g}, "
+        f"worst by rank {[f'{w[1]:.3g} ({w[0]})' for w in worst]}; limit "
+        f"{tol}")
+    assert all(w[1] <= tol for w in worst), (shape, worst)
+    # bf16: the mesh's gradients as close to the fp32 ones as one
+    # process's bf16 gradients are (median and worst tensor), within
+    # TRAIN_GRAD_TOL.  Held to one process's bf16 gradients directly they
+    # differ by about bf16's own distance from fp32: two bf16 steps that
+    # sum in other orders (the mesh's partial sums are rounded to bf16
+    # before their reduction) part as far at this depth
+    tol = TRAIN_GRAD_TOL["bfloat16"]
+    one = ref["bf16_to_f32"]
+    for rank, r in enumerate(results):
+        mesh_ = r["bf16_to_f32"]
+        got = (statistics.median(mesh_.values()), max(mesh_.values()))
+        want = (statistics.median(one.values()), max(one.values()))
+        if rank == 0:
+            direct = r["grads"]["bfloat16"]
+            log(f"mesh {shape}: bf16 gradients against one process's fp32 "
+                f"ones, relative L2 median (worst tensor): the mesh "
+                f"{got[0]:.3g} ({got[1]:.3g}), one process {want[0]:.3g} "
+                f"({want[1]:.3g}); limit one process's + {tol}. Against one "
+                f"process's bf16 ones: median "
+                f"{statistics.median(direct.values()):.3g}, worst "
+                f"{max(direct.values()):.3g} "
+                f"({max(direct, key=direct.get)})")
+        assert got[0] <= want[0] + tol and got[1] <= want[1] + tol, \
+            (shape, rank, got, want)
+    losses = results[0]["losses"]
+    assert all(r["losses"] == losses for r in results), \
+        [r["losses"] for r in results]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    log(f"mesh {shape}: fp32 losses {[round(x, 5) for x in losses]} (one "
+        f"process: {[round(x, 5) for x in ref['losses']]}), relative "
+        f"{[f'{x:.2g}' for x in rel]}; limit {MESH_LOSS_RTOL}")
+    assert len(losses) == n_steps and max(rel) <= MESH_LOSS_RTOL, rel
+    assert losses[-1] < losses[0], losses
+    want = train_launches(cfg, n_steps)
+    for rank, r in enumerate(results):
+        assert r["launched"] == want, (shape, rank, r["launched"], want)
+    r0 = results[0]
+    steady = statistics.median(r0["times"][1:])
+    share = sum(r0["coll_s"][1:]) / sum(r0["times"][1:])
+    log(f"mesh {shape}: launches on each rank "
+        f"{ {k: v for k, v in want.items() if v} } ({n_steps} steps, as "
+        f"train_launches says for one process), each step's exactly; "
+        f"placements {r0['placements']}")
+    log(f"mesh {shape}: rank 0's collectives over the {n_steps} steps by op "
+        f"(calls, s, MiB): "
+        f"{ {op: (c, round(t, 2), round(b / 2**20, 1)) for op, (c, t, b) in sorted(r0['by_op'].items())} }")
+    log(f"mesh {shape}: rank 0 ms a step {[round(t * 1e3, 1) for t in r0['times']]}"
+        f" (median after the first {steady * 1e3:.1f}; one process "
+        f"{statistics.median(ref['times'][1:]) * 1e3:.1f}), collectives "
+        f"{r0['coll_n']} a step, {100 * share:.1f}% of the step; peak card "
+        f"memory by rank {[round(r['peak_gib'], 2) for r in results]} GiB "
+        f"(one process {ref['peak_gib']:.2f}); {name_limit}")
+
+
+def mesh_training_phase(name_limit: str, device: str = "cuda") -> None:
+    """Phase 14: ``launch.train`` on 4 ranks sharing the card over
+    ``dist.ranks.HOST_STAGED``, on the (2, 2) and (1, 4) meshes, held to
+    one process without a mesh; a checkpoint saved on (2, 2) restored on
+    (1, 4) and in one process."""
+    stage("phase 14: training on a mesh of 4 ranks sharing the card")
+    cfg = mesh_train_cfg("float32")
+    n_steps = mesh_train_args(device).steps
+    t0 = time.perf_counter()
+    ref = mesh_reference(device)
+    log(f"mesh: one process, zamba2-1.2b at full width and depth "
+        f"{TRAIN_GATE_DEPTH} ({param_count(cfg) / 1e6:.1f} M parameters), "
+        f"batch 4 x 1024: gradients in bf16 and fp32 and {n_steps} fp32 "
+        f"steps in {time.perf_counter() - t0:.1f} s, ms a step "
+        f"{[round(t * 1e3, 1) for t in ref['times']]}, peak "
+        f"{ref['peak_gib']:.2f} GiB")
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {s: os.path.join(tmp, f"ckpt_{s[0]}x{s[1]}")
+                for s in MESH_TRAIN_SHAPES}
+        saved_by = MESH_TRAIN_SHAPES[0]
+        for shape in MESH_TRAIN_SHAPES:
+            t0 = time.perf_counter()
+            results = dist_ranks.spawn(
+                mesh_train_rank, 4, tmp,
+                args=(shape, ref, dirs[shape],
+                      None if shape == saved_by else dirs[saved_by], device),
+                device=device, timeout_s=RANK_TIMEOUT_S,
+                deadline_s=RANK_DEADLINE_S, backend=dist_ranks.HOST_STAGED)
+            log(f"mesh {shape}: 4 ranks spawned, ran and joined in "
+                f"{time.perf_counter() - t0:.1f} s")
+            check_mesh_run(shape, results, ref, cfg, n_steps, name_limit)
+            if shape != saved_by:
+                resumed = [r["resumed"] for r in results]
+                arrays = resumed[0][1]
+                assert resumed == [(n_steps, arrays)] * 4, resumed
+        one = launch_train.Run(mesh_train_args(
+            device, "--ckpt-dir", dirs[saved_by], "--resume", "auto"), cfg)
+        from repro_torch.train.trainer import state_tree
+        assert one.start == n_steps
+        assert equals_saved(state_tree(one.model, one.opt_state),
+                            dirs[saved_by], n_steps) == arrays
+        del one
+        reset_peak(device)
+    log(f"mesh: the checkpoint saved on {saved_by} (gathered, written by "
+        f"rank 0) restored on {MESH_TRAIN_SHAPES[1]} and in one process: "
+        f"all {arrays} arrays torch.equal to the file")
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the examples, the planning example's backend check, the dry run
 # ---------------------------------------------------------------------------
 
@@ -3447,6 +3832,7 @@ def main(argv) -> int:
     zoo, zoo_by_arch = zoo_phase(name_limit)
     train, train32 = training_phase()
     ex = examples_phase()
+    mesh_training_phase(name_limit)
     mla = zoo_by_arch["deepseek-v2-236b"]
     falcon, zamba = zoo_by_arch["falcon-mamba-7b"], zoo_by_arch["zamba2-1.2b"]
 

@@ -4,8 +4,8 @@ file a chaos-killed serve resumes from (counterpart of
 
 ``resume`` restores the latest checkpoint of a
 :class:`~repro_torch.ckpt.manager.CheckpointManager` into a target
-tree's structure on one device: the JAX package's restore onto a new
-mesh's shardings, on a single card.
+tree's structure on one device, or distributed onto a mesh's
+placements: the JAX package's restore onto a new mesh's shardings.
 
 ``save_serving_snapshot``/``load_serving_snapshot`` persist a
 :class:`~repro_torch.runtime.scheduler.Scheduler`'s request state --
@@ -23,15 +23,37 @@ import pickle
 import tempfile
 
 
-def resume(manager, abstract_tree, device=None):
+def resume(manager, abstract_tree, device=None, placements=None):
     """(restored tree | None, start step): the latest checkpoint of
     ``manager`` restored into ``abstract_tree``'s structure (tensor
     leaves, ``meta`` ones too, give their shapes and dtypes) on
-    ``device``; (None, 0) when the directory holds no checkpoint."""
+    ``device``; (None, 0) when the directory holds no checkpoint.
+    ``placements``, a tree of the same structure whose leaves are
+    ``(DeviceMesh, placements)`` pairs (or None for a leaf kept whole),
+    distributes each restored array onto its mesh -- the JAX package's
+    ``device_put`` onto the new mesh's shardings, so a run resumes on
+    another mesh (another rank count) than the one that saved it.  Every
+    rank reads the whole arrays and keeps its own shards."""
     step = manager.latest_step()
     if step is None:
         return None, 0
-    return manager.restore(step, abstract_tree, device=device), step
+    restored = manager.restore(step, abstract_tree, device=device)
+    if placements is not None:
+        restored = _distribute(restored, placements)
+    return restored, step
+
+
+def _distribute(tree, layouts):
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: _distribute(v, layouts[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_distribute(v, s) for v, s in zip(tree, layouts))
+    if layouts is None:
+        return tree
+    mesh, where = layouts
+    return distribute_tensor(tree, mesh, where, src_data_rank=None)
 
 
 def save_serving_snapshot(path: str | os.PathLike, snapshot: dict) -> str:

@@ -25,9 +25,18 @@ A spec is a tuple with one entry a tensor dim -- ``None``, a mesh axis
 name, or a tuple of names (a joint sharding) -- with trailing ``None``s
 dropped: the twin of ``jax.sharding.PartitionSpec``.  The mesh these
 read is an :class:`AbstractMesh` (named axis sizes, no devices), the
-twin of the JAX package's ``abstract_mesh``; :func:`placements` turns a
-spec into ``torch.distributed.tensor`` placements for a real
-``DeviceMesh`` of the same axes (``launch.mesh.device_mesh``).
+twin of the JAX package's ``abstract_mesh``, or a real ``DeviceMesh``
+of the same axes (``launch.mesh.device_mesh``); :func:`placements`
+turns a spec into ``torch.distributed.tensor`` placements, and
+:func:`distribute` makes a DTensor by them.
+
+Training on a mesh runs the models' plain eager code on DTensors: their
+sharding propagation plays the part XLA's partitioner plays for the JAX
+package's ``jax.jit`` over shardings.  :func:`like` puts a tensor a
+model makes itself (positions, masks, zero states) on the mesh of the
+DTensor it meets, and the ``constrain_*`` anchors redistribute a
+DTensor to the JAX package's specs; on plain tensors all three are
+identities, so a model off the mesh runs exactly as before.
 
 The second half is the Program spine's axis policy: which GEMM rank a
 lowered Program is split along across an
@@ -94,7 +103,12 @@ def abstract_mesh(axis_sizes: tuple[int, ...],
                         tuple(axis_names))
 
 
-def _mesh_sizes(mesh) -> dict[str, int]:
+def mesh_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of an :class:`AbstractMesh` or a named
+    ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return {str(k): int(v) for k, v in zip(names, mesh.shape)}
     return {str(k): int(v) for k, v in dict(mesh.shape).items()}
 
 
@@ -102,7 +116,7 @@ def spec_for(axes: tuple[str, ...], shape: tuple[int, ...], mesh,
              rules: dict | None = None) -> tuple:
     """Logical axes + concrete shape -> spec on ``mesh``."""
     rules = RULES if rules is None else rules
-    sizes = _mesh_sizes(mesh)
+    sizes = mesh_sizes(mesh)
     assign: list = [None] * len(axes)
     used: set[str] = set()
     order = sorted(range(len(axes)),
@@ -166,7 +180,10 @@ def replicated(mesh) -> tuple:
     return ()
 
 
-def _batch_spec(shape: tuple[int, ...], sizes: dict[str, int]) -> tuple:
+def leading_spec(shape: tuple[int, ...], sizes: dict[str, int]) -> tuple:
+    """The spec that shards the leading (batch) dim of ``shape`` over the
+    pure-data axes of a mesh of ``sizes`` ({axis: size}), jointly, where
+    it divides them; ``()`` (replicated) where it does not."""
     axes = tuple(a for a in _DATA_AXES if a in sizes)
     if not shape or not axes:
         return ()
@@ -179,14 +196,14 @@ def _batch_spec(shape: tuple[int, ...], sizes: dict[str, int]) -> tuple:
 def batch_sharding(mesh, batch_spec):
     """Batch tree (tensors) -> specs that shard the leading (batch) dim
     over the pure-data axes."""
-    sizes = _mesh_sizes(mesh)
+    sizes = mesh_sizes(mesh)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
-        return _batch_spec(tuple(node.shape), sizes)
+        return leading_spec(tuple(node.shape), sizes)
     return walk(batch_spec)
 
 
@@ -200,7 +217,7 @@ def placements(spec: tuple, tensor_ndim: int, mesh) -> tuple:
     if len(spec) > tensor_ndim:
         raise ValueError(f"spec {spec} has more entries than the "
                          f"tensor's {tensor_ndim} dims")
-    names = tuple(_mesh_sizes(mesh))
+    names = tuple(mesh_sizes(mesh))
     dim_of: dict[str, int] = {}
     for d, entry in enumerate(spec):
         for name in ((entry,) if isinstance(entry, str) else entry or ()):
@@ -214,24 +231,134 @@ def placements(spec: tuple, tensor_ndim: int, mesh) -> tuple:
                  for n in names)
 
 
+def distribute(t, spec: tuple, device_mesh):
+    """``t``, the same whole tensor on every rank, as a DTensor on
+    ``device_mesh`` placed by ``spec``: each rank keeps its own shard of
+    it, with no collective."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, device_mesh,
+                             placements(spec, t.ndim, device_mesh),
+                             src_data_rank=None)
+
+
+def shard_like(t, ref):
+    """``t``, a whole tensor the same on every rank, as a DTensor placed
+    as the DTensor ``ref`` is (each rank keeps its shard, on ``ref``'s
+    device; no collective); ``t`` itself when ``ref`` is a plain tensor
+    (or ``t`` a DTensor)."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(ref.device), ref.device_mesh,
+                             ref.placements, src_data_rank=None)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def like(t, ref):
+    """``t``, a tensor a model made itself (the same on every rank), on
+    the mesh of the DTensor ``ref`` it meets, replicated on every axis;
+    ``t`` itself when ``ref`` is a plain tensor or ``t`` a DTensor."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def row_local(fn, *args, n_out: int, whole: tuple = ()):
+    """``fn(*args)``, where each batch row (dim 0) of every output depends
+    only on the same rows of the inputs (a MoE layer's routing, dispatch
+    and combine; an embedding gather).  On DTensors it runs in a
+    ``local_map`` region on each rank's rows (over the data axes where
+    the batch divides them, every row where it does not), every other
+    dim whole; its ``n_out`` outputs come back as DTensors placed so.
+    The args at the indices ``whole`` (a table every row reads) go in
+    whole, replicated, and their gradients come back partial over the
+    data axes (each rank's rows' part).  On plain tensors it is ``fn``."""
+    ref = next((a for a in args if is_dtensor(a)), None)
+    if ref is None:
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ref.device_mesh
+    spec = leading_spec(tuple(ref.shape), mesh_sizes(mesh))
+    place = placements(spec, 1, mesh)
+    rep = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if p.is_shard() else r for p, r in zip(place, rep))
+    args = tuple(like(a, ref) if hasattr(a, "ndim") else a for a in args)
+    ins = tuple(None if not hasattr(a, "ndim") else rep if i in whole
+                else place for i, a in enumerate(args))
+    grads = tuple(part if i in whole else p for i, p in enumerate(ins))
+    return local_map(fn, out_placements=((place,) * n_out if n_out > 1
+                                         else list(place)),
+                     in_placements=ins, in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 # ---------------------------------------------------------------------------
 # In-graph constraints
 # ---------------------------------------------------------------------------
 
+def _constrain(x, spec_fn):
+    """``x`` redistributed to ``spec_fn({axis: size})`` on its mesh when
+    it is a DTensor, the twin of the JAX package's
+    ``with_sharding_constraint`` under a mesh; ``x`` itself otherwise,
+    as the JAX package's is with no mesh active."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    want = placements(spec_fn(mesh_sizes(mesh)), x.ndim, mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
 def constrain_batch(x, extra: tuple = ()):
-    """Identity: the JAX package's ``constrain_batch`` is one when no
-    mesh is active, and the port runs a model on one device."""
-    return x
+    """Anchor dim 0 to the data axes; ``extra`` names trailing dims after
+    the batch dim ('' / None = unsharded)."""
+    def spec_fn(sizes):
+        bspec = leading_spec(tuple(x.shape), sizes)
+        entries = [bspec[0] if bspec else None]
+        for i, name in enumerate(extra):
+            dim = 1 + i
+            entries.append(name if (name and name in sizes and dim < x.ndim
+                                    and x.shape[dim] % sizes[name] == 0)
+                           else None)
+        return tuple(entries)
+    return _constrain(x, spec_fn)
 
 
 def constrain_seq_scores(scores):
-    """Identity (see :func:`constrain_batch`)."""
-    return scores
+    """Attention-score anchor: batch over data, KV-sequence (last dim)
+    over 'model'."""
+    def spec_fn(sizes):
+        entries: list = [None] * scores.ndim
+        bspec = leading_spec(tuple(scores.shape), sizes)
+        if bspec:
+            entries[0] = bspec[0]
+        if ("model" in sizes and scores.ndim > 1
+                and scores.shape[-1] % sizes["model"] == 0):
+            entries[-1] = "model"
+        return tuple(entries)
+    return _constrain(scores, spec_fn)
 
 
 def constrain_rows_model(table):
-    """Identity (see :func:`constrain_batch`)."""
-    return table
+    """Anchor a (rows, feature) table to rows over 'model', features
+    replicated, before the embedding gather and the tied head."""
+    def spec_fn(sizes):
+        if "model" in sizes and table.shape[0] % sizes["model"] == 0:
+            return ("model",)
+        return ()
+    return _constrain(table, spec_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,26 @@ results bit for bit the same.
 On the ``meta`` device the model zoo's three kernel ops (and their
 backwards) take ``kernels.meta``: outputs of the right shapes, no data,
 and the kernel's reckoned work told to the dry run's tracer.
+
+On a mesh (training with the parameters as DTensors, ``train.trainer``)
+``flash_attention``, ``mamba_scan`` and ``mamba_scan_heads`` are given
+DTensors at their unfolded shapes.  Each then runs in a
+``local_map`` region under its sharding rule (:func:`_rule`): the batch
+dim over the data axes and the heads (the scan's channels) over
+``"model"``, each only where it divides, as ``dist.sharding.spec_for``
+assigns an axis, and replicated where it does not.  Inside the region
+the folding, padding, autograd Functions and kernels run unchanged on
+each rank's local shard, with no collective: a head (a channel) never
+reads another.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.dist import sharding as _sh
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_chain as _fc
 from repro_torch.kernels import mamba_scan as _ms
@@ -131,6 +145,58 @@ def _pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))], 1)
 
 
+def _rule(mesh, batch: int, channels: int):
+    """A kernel op's sharding rule on ``mesh``: ``place(dim)`` gives the
+    placements of an operand whose dim 0 is the batch and whose dim
+    ``dim`` holds the heads (the scan's channels; None for an operand
+    that has none, such as Mamba-1's ``c``).  The batch goes over the
+    data axes and the heads over ``"model"``, each only when its size
+    divides the axes' (``batch``, ``channels``), as ``spec_for`` assigns
+    an axis; a dim that does not divide (kv_heads below the model size,
+    a batch below the data size) is replicated, and every rank of that
+    axis computes all of it.  ``place(dim, grad=True)`` gives its
+    gradient's: an operand with no heads dim, used by every rank's heads,
+    gets a partial gradient over ``"model"`` (each rank's heads' part),
+    summed where it is used."""
+    from torch.distributed.tensor import Partial
+
+    sizes = _sh.mesh_sizes(mesh)
+    batch_spec = _sh.leading_spec((batch,), sizes)
+    heads = "model" in sizes and channels % sizes["model"] == 0
+
+    def place(dim, grad=False):
+        spec = [batch_spec[0] if batch_spec else None]
+        if heads and dim is not None:
+            spec += [None] * (dim - 1) + ["model"]
+        out = _sh.placements(tuple(spec), len(spec), mesh)
+        if grad and heads and dim is None:
+            out = tuple(Partial() if n == "model" else p
+                        for n, p in zip(sizes, out))
+        return out
+    return place
+
+
+def _on_mesh(fn, args: tuple, dims: tuple, out_dims: tuple, channels: int):
+    """``fn(*args)`` in a ``local_map`` region: ``args`` (DTensors; a plain
+    tensor is taken as replicated) redistributed to :func:`_rule`'s
+    placements (``dims``: each one's heads dim), ``fn`` run on the local
+    shards, its outputs DTensors placed by ``out_dims``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    ref = next(a for a in args if _sh.is_dtensor(a))
+    args = tuple(_sh.like(a, ref) for a in args)
+    mesh = ref.device_mesh
+    place = _rule(mesh, ref.shape[0], channels)
+    outs = tuple(place(d) for d in out_dims)
+    # one output's placements go as a list (a tuple holds one an output)
+    return local_map(fn, out_placements=outs if len(outs) > 1
+                     else list(outs[0]),
+                     in_placements=tuple(place(d) for d in dims),
+                     in_grad_placements=tuple(place(d, grad=True)
+                                              for d in dims),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 def flash_attention(q, k, v, *, causal=True, bq=128, bkv=128):
     """q, k: [B, S, H, D], v: [B, S, H, Dv] with Dv <= D -> [B, S, H, Dv],
     scale ``D**-0.5``.
@@ -139,7 +205,16 @@ def flash_attention(q, k, v, *, causal=True, bq=128, bkv=128):
     zero-padded to the block sizes (``bq``/``bkv``, cut to the largest
     power of two <= S as the JAX wrapper does) with the true key length
     passed as ``kv_len``, so padded keys never contribute.  A narrower v
-    (MLA's value heads) is zero-padded to D and the output cut back."""
+    (MLA's value heads) is zero-padded to D and the output cut back.
+    DTensors run on each rank's batch rows and heads (:func:`_rule`)."""
+    fn = functools.partial(_flash_attention, causal=causal, bq=bq, bkv=bkv)
+    if any(_sh.is_dtensor(t) for t in (q, k, v)):
+        heads = q.shape[2] if k.shape[2] == q.shape[2] == v.shape[2] else 1
+        return _on_mesh(fn, (q, k, v), (2, 2, 2), (2,), heads)
+    return fn(q, k, v)
+
+
+def _flash_attention(q, k, v, *, causal, bq, bkv):
     b, s, h, d = q.shape
     sk, dv = k.shape[1], v.shape[3]
     if dv > d:
@@ -271,7 +346,36 @@ def mamba_scan(da, dbx, c, h0):
     blocks only tile VMEM, so neither version takes a block size.  The
     kernel takes N a power of two up to 64 (``mamba_scan.STATE_WIDTHS``);
     a width below 64 that is not one is padded with zeros (an inert
-    state) to the next, and one past 64 is refused."""
+    state) to the next, and one past 64 is refused.  DTensors run on
+    each rank's batch rows and channels (:func:`_rule`; ``c`` is
+    replicated over ``"model"``)."""
+    if any(_sh.is_dtensor(t) for t in (da, dbx, c, h0)):
+        return _on_mesh(_mamba_scan, (da, dbx, c, h0), (2, 2, None, 1),
+                        (2, 1), da.shape[2])
+    return _mamba_scan(da, dbx, c, h0)
+
+
+def mamba_scan_heads(da, dbx, c, h0):
+    """Mamba-2's scan with its heads a dim of their own: da, dbx [B, H,
+    L, P, N], c [B, H, L, N], h0 [B, H, P, N] -> (y [B, H, L, P], h_last
+    [B, H, P, N]).  The heads fold into the scan's batch ([B*H, L, P,
+    N]) for one :func:`mamba_scan`; DTensors fold on each rank, after
+    its batch rows and heads are cut (:func:`_rule`)."""
+    if any(_sh.is_dtensor(t) for t in (da, dbx, c, h0)):
+        return _on_mesh(_mamba_scan_heads, (da, dbx, c, h0), (1, 1, 1, 1),
+                        (1, 1), da.shape[1])
+    return _mamba_scan_heads(da, dbx, c, h0)
+
+
+def _mamba_scan_heads(da, dbx, c, h0):
+    b, h, l, p, n = da.shape
+    y, h_last = _mamba_scan(da.reshape(b * h, l, p, n),
+                            dbx.reshape(b * h, l, p, n),
+                            c.reshape(b * h, l, n), h0.reshape(b * h, p, n))
+    return y.view(b, h, l, p), h_last.view(b, h, p, n)
+
+
+def _mamba_scan(da, dbx, c, h0):
     if _on_cpu(da, dbx, c, h0):
         return scan_core(da, dbx, c, h0)
     n = da.shape[-1]

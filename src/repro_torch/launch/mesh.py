@@ -8,7 +8,7 @@ The meshes are :class:`~repro_torch.dist.sharding.AbstractMesh` es, named
 axis sizes with no devices behind them: what the dry run and the
 sharding rules read.  :func:`device_mesh` makes the real
 ``torch.distributed`` ``DeviceMesh`` of one, and only when a process
-group of its size exists.
+group of its size exists: ``launch.train`` trains on it.
 """
 
 from __future__ import annotations
@@ -25,8 +25,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 
 
 def make_host_mesh(device="cuda") -> AbstractMesh:
-    """This host's (1, n) ``(data, model)`` mesh: n the visible CUDA
-    devices (raising without one), or 1 for ``device="cpu"``."""
+    """The (1, n) ``(data, model)`` mesh of what this program has, the
+    twin of the JAX package's ``len(jax.devices())``: with a process
+    group up, n is its size (one rank a device); without one, n is the
+    visible CUDA devices (raising without one), or 1 for
+    ``device="cpu"``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return abstract_mesh((1, dist.get_world_size()), ("data", "model"))
     if torch.device(device).type == "cpu":
         return abstract_mesh((1, 1), ("data", "model"))
     n = torch.cuda.device_count()

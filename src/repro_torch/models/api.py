@@ -19,9 +19,22 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models import common, encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import DTYPES, Maker
 from repro_torch.models.mlp import GATED
+
+
+def gold_logits(logits: torch.Tensor, gold: torch.Tensor) -> torch.Tensor:
+    """``logits[b, s, gold[b, s]]``: a plain tensor's by a gather, a
+    DTensor's (its vocab cut over ``"model"``) by the vocabulary's mask
+    summed, which each rank sums over its own columns."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, gold[..., None])[..., 0]
+    vocab = common.like(torch.arange(logits.shape[-1], device=gold.device),
+                        logits)
+    return torch.where(gold[..., None] == vocab, logits, 0.0).sum(-1)
+
 
 #: each family's network
 NETS = {"dense": transformer.Decoder, "moe": transformer.Decoder,
@@ -55,7 +68,12 @@ class Model(nn.Module):
         return DTYPES[self.cfg.dtype]
 
     def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device).long()
+        return self._input(tokens).long()
+
+    def _input(self, x) -> torch.Tensor:
+        """A batch entry (numpy, a tensor, or a DTensor already placed on
+        the parameters' mesh) as a tensor on the model's device."""
+        return x if is_dtensor(x) else torch.as_tensor(x, device=self.device)
 
     # ---------------- training ----------------
     def loss(self, batch: dict, remat: bool = True):
@@ -66,21 +84,22 @@ class Model(nn.Module):
         + 0.01 * aux`` with aux the MoE layers' load-balancing loss.
         ``remat`` rematerialises each layer's activations in the backward
         where the JAX package puts ``jax.checkpoint``.  Returns (loss,
-        {"nll", "aux", "perplexity"}), 0-d fp32 tensors."""
+        {"nll", "aux", "perplexity"}), 0-d fp32 tensors.  With the
+        parameters on a mesh (DTensors) the batch comes placed on it
+        (``train.trainer.place_batch``) and the results are replicated
+        DTensors."""
         tokens = self._tokens(batch["tokens"])
         kw = {}
         if batch.get("patches") is not None:
-            kw["prefix_embeds"] = torch.as_tensor(batch["patches"],
-                                                  device=self.device)
+            kw["prefix_embeds"] = self._input(batch["patches"])
         if batch.get("frames") is not None:
-            kw["frames"] = torch.as_tensor(batch["frames"],
-                                           device=self.device)
+            kw["frames"] = self._input(batch["frames"])
         logits, aux = self.net(tokens, "train", remat=remat, **kw)
         if self.cfg.family == "vlm" and "prefix_embeds" in kw:
             logits = logits[:, kw["prefix_embeds"].shape[1]:]
         logits = logits[:, :-1].float()
         logz = torch.logsumexp(logits, -1)
-        gold = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
+        gold = gold_logits(logits, tokens[:, 1:])
         nll = (logz - gold).mean()
         return nll + 0.01 * aux, {"nll": nll, "aux": aux,
                                   "perplexity": torch.exp(nll)}
@@ -251,7 +270,8 @@ class Model(nn.Module):
     def numpy_tree(self) -> dict:
         """The parameters as the JAX package's pytree of numpy arrays
         (``common.nest``: the ``STACKED`` axes restacked); bf16 as fp32,
-        which holds every bf16 value exactly."""
+        which holds every bf16 value exactly.  DTensors are gathered
+        whole (a collective: every rank calls it)."""
         return common.nest({n: common.to_numpy(p)
                             for n, p in self.net.named_parameters()})
 

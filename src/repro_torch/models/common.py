@@ -10,6 +10,12 @@ Every parameter also carries the logical names of its dims
 (``logical_axes``, the names the JAX package's ``Maker.param`` takes),
 which ``dist.sharding`` maps onto a mesh; ``Model.axes`` gathers them
 in place of the JAX ``Maker``'s ``axes`` mode.
+
+On a mesh the parameters are DTensors (``train.trainer.place``) and the
+same code runs on them.  So every tensor a model makes itself (rope's
+frequencies, positions, zero states) goes through ``dist.sharding.like``
+to the mesh of the stream it meets, and :func:`zeros` makes a zero
+state that way; off a mesh both are plain tensors, as before.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.dist.sharding import (constrain_rows_model, is_dtensor,
+                                       like, row_local, shard_like)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -127,9 +136,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     positions: [..., seq].  The frequencies' denominator is ``half`` (as
     the JAX package writes it), and the rotation runs in fp32."""
     half = x.shape[-1] // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=x.device) / half))
-    angles = positions[..., None].float() * freqs       # [..., seq, half]
+    freqs = like(1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                               device=x.device) / half)), x)
+    angles = like(positions, x)[..., None].float() * freqs  # [..., seq, half]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -141,14 +150,28 @@ def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal embeddings of integer ``positions`` [...] -> [..., dim]
     fp32: the sines of every frequency, then the cosines."""
     half = dim // 2
-    div = torch.exp(-np.log(10000.0) * torch.arange(
-        half, dtype=torch.float32, device=positions.device) / half)
+    div = like(torch.exp(-np.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half),
+        positions)
     ang = positions[..., None].float() * div
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
 def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
     return sinusoidal_at(torch.arange(length, device=device), dim)
+
+
+def zeros(ref: torch.Tensor, shape, dtype=None) -> torch.Tensor:
+    """Zeros of ``shape`` (``ref``'s dtype unless given) on ``ref``'s
+    device and, when ``ref`` is a DTensor, replicated on its mesh."""
+    return like(torch.zeros(shape, dtype=dtype or ref.dtype,
+                            device=ref.device), ref)
+
+
+def positions_of(ref: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """Positions 0..s-1 of each of ``b`` rows, [b, s], on ``ref``'s
+    device and mesh."""
+    return like(torch.arange(s, device=ref.device).expand(b, s), ref)
 
 
 # ---------------------------------------------------------------------------
@@ -169,17 +192,25 @@ def activation(name: str):
 # Embedding / unembedding, dense
 # ---------------------------------------------------------------------------
 
+def _gather_rows(tokens, table):
+    return table[tokens]
+
+
 class Embed(nn.Module):
     def __init__(self, mk: Maker, vocab: int, dim: int):
         super().__init__()
         self.table = mk.param((vocab, dim), ("vocab", "embed"), scale=1.0)
 
     def forward(self, tokens):
-        return self.table[tokens]
+        """The rows of ``tokens``; on a mesh each rank gathers its own
+        batch rows from the whole table (``dist.sharding.row_local``),
+        where the JAX package gathers from a table cut over ``"model"``."""
+        return row_local(_gather_rows, tokens, self.table, n_out=1,
+                         whole=(1,))
 
     def unembed(self, x):
         """Tied output head: ``x @ table^T``."""
-        return x @ self.table.to(x.dtype).t()
+        return x @ constrain_rows_model(self.table).to(x.dtype).t()
 
 
 class Dense(nn.Module):
@@ -237,7 +268,8 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 def load_numpy(module: nn.Module, tree) -> None:
     """Copy the JAX package's parameter pytree (numpy arrays, or tensors
     on any device) into ``module``'s parameters by name, in their layouts
-    (no transposes); raises on a missing, extra or misshapen name."""
+    (no transposes); raises on a missing, extra or misshapen name.  A
+    DTensor parameter takes its own shard of the whole array."""
     flat = flatten_tree(tree)
     params = dict(module.named_parameters())
     if set(flat) != set(params):
@@ -251,13 +283,16 @@ def load_numpy(module: nn.Module, tree) -> None:
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: pytree shape {tuple(t.shape)}, "
                                  f"module shape {tuple(p.shape)}")
-            p.copy_(t)
+            p.copy_(shard_like(t, p))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a numpy array on the host; bf16 (which numpy lacks)
-    as fp32, exactly."""
+    as fp32, exactly.  A DTensor is gathered whole first (a collective:
+    every rank of its mesh calls this)."""
     t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()

@@ -32,8 +32,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (Embed, LayerNorm, Maker,
-                                       sinusoidal_at, sinusoidal_positions)
+from repro_torch.models.common import (Embed, LayerNorm, Maker, like,
+                                       sinusoidal_at, sinusoidal_positions,
+                                       zeros)
 from repro_torch.models.mlp import MLP
 
 
@@ -109,8 +110,8 @@ class EncDec(nn.Module):
         layer under ``checkpoint`` with ``remat``."""
         dtype = self.embed.table.dtype
         _, t, d = frames.shape
-        x = frames.to(dtype) + sinusoidal_positions(
-            t, d, frames.device).to(dtype)
+        x = frames.to(dtype) + like(sinusoidal_positions(
+            t, d, frames.device).to(dtype), frames)
         for layer in self.enc_layers:
             x = (checkpoint(layer, x, use_reentrant=False) if remat
                  else layer(x))
@@ -132,7 +133,7 @@ class EncDec(nn.Module):
             if frames is None:
                 raise ValueError(f"{self.cfg.name} needs frames to {mode}")
             enc_out = self.encode(frames, remat and mode == "train")
-            pos_emb = sinusoidal_positions(s, d, x.device)[None]
+            pos_emb = like(sinusoidal_positions(s, d, x.device)[None], x)
         x = x + pos_emb.to(x.dtype)
         if mode == "train":
             for layer in self.dec_layers:
@@ -140,7 +141,7 @@ class EncDec(nn.Module):
                                 use_reentrant=False) if remat
                      else _train_layer(layer, x, enc_out))
             return (self.embed.unembed(self.dec_ln_f(x)),
-                    x.new_zeros((), dtype=torch.float32))
+                    zeros(x, (), torch.float32))
         new = {"self": ([], []), "cross": ([], [])}
         for i, layer in enumerate(self.dec_layers):
             c = None if cache is None else {

@@ -25,7 +25,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.common import Embed, Maker, RMSNorm
+from repro_torch.models.common import (Embed, Maker, RMSNorm, positions_of,
+                                       zeros)
 from repro_torch.models.mlp import MLP
 from repro_torch.models.ssm_lm import run_blocks
 
@@ -93,7 +94,7 @@ class Hybrid(nn.Module):
         if mode == "decode":
             positions = position_idx[:, None]
         else:
-            positions = torch.arange(s, device=x.device).expand(b, s)
+            positions = positions_of(x, b, s)
         every = self.cfg.attn_every
         if mode == "train":
             return self._train(x, positions, remat)
@@ -132,4 +133,4 @@ class Hybrid(nn.Module):
             x, _ = self.shared(x, norm, positions, "train")
         x = run_blocks(blocks[len(self.app_norms) * every:], x, remat)
         return (self.embed.unembed(self.ln_f(x)),
-                x.new_zeros((), dtype=torch.float32))
+                zeros(x, (), torch.float32))

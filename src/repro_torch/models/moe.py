@@ -14,9 +14,10 @@ Fixed sums: the dispatch writes each kept slot once (a plain index copy;
 dropped choices go to a spare slot that is cut off, where the JAX package
 adds zeros to the last slot), and the combine gathers a token's k
 contributions to ``[B, S, k, d]`` through the inverse of the sort and
-sums over k, where the JAX package scatter-adds them; the only atomics
-count experts for ``aux`` (adds of 1.0, exact), so the result does not
-change from run to run on the card.
+sums over k, where the JAX package scatter-adds them; ``aux`` counts
+each expert's choices by a compare and a sum (exact), so the result does
+not change from run to run on the card.  Routing, dispatch and combine
+are row-local, so on a mesh each rank routes its own batch rows.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import constrain_batch, like, row_local
 from repro_torch.models.common import Maker, activation
 from repro_torch.models.mlp import GATED
 
@@ -109,43 +111,62 @@ class MoE(nn.Module):
 
     def _expert_ffn(self, xs: torch.Tensor) -> torch.Tensor:
         """xs [B, E, cap, d] -> [B, E, cap, d] through each expert's FFN."""
-        def up(w):
-            return torch.einsum("becd,edf->becf", xs, w.to(xs.dtype))
+        def up(w):              # becd,edf->becf: e broadcasts over b
+            return xs @ w.to(xs.dtype)
         if self.kind in GATED:
             h = activation(GATED[self.kind])(up(self.w_gate)) * up(self.w_up)
         else:
             h = activation(self.kind)(up(self.w_up))
-        return torch.einsum("becf,efd->becd", h, self.w_down.to(xs.dtype))
+        return h @ self.w_down.to(xs.dtype)
 
-    def forward(self, x: torch.Tensor):
-        """x [B, S, d] -> (out [B, S, d], aux)."""
+    def _dispatch(self, x: torch.Tensor, probs: torch.Tensor):
+        """Routing and dispatch, row by row: x [B, S, d], probs [B, S, E]
+        -> (buf [B, E, cap, d], gate_vals [B, S, k], gate_idx, order,
+        slot, keep): each kept (token, choice) in its own slot, the
+        dropped ones in a spare slot past the buffer (no mask, so no wait
+        on the card for its count)."""
         b, s, d = x.shape
         e, k = self.num_experts, self.top_k
-        logits = x.float() @ self.router.float()                 # [B, S, E]
-        probs = torch.softmax(logits, -1)
         gate_idx = choose(probs, k)
         gate_vals = gates(probs, gate_idx)
         cap = capacity(s, k, e, self.capacity_factor)
         order, token, slot, keep = route(gate_idx, e, cap)
-
-        # dispatch: each kept (token, choice) to its own slot, the dropped
-        # ones to a spare slot past the buffer (no mask, so no wait on the
-        # card for its count)
         rows = torch.arange(b, device=x.device)[:, None]
         buf = x.new_zeros((b, e * cap + 1, d))
         buf[rows, torch.where(keep, slot, e * cap)] = torch.gather(
             x, 1, token[..., None].expand(-1, -1, d))
-        out_buf = self._expert_ffn(buf[:, :-1].view(b, e, cap, d)).reshape(
-            b, e * cap, d)
+        return (buf[:, :-1].reshape(b, e, cap, d).contiguous(), gate_vals,
+                gate_idx, order,
+                slot, keep)
 
-        # combine: back to (token, choice) order, weighted, summed over k
+    @staticmethod
+    def _combine(out_buf, gate_vals, order, slot, keep):
+        """Each token's k experts' outputs back in (token, choice) order,
+        weighted, summed over k: out_buf [B, E, cap, d] -> [B, S, d]."""
+        b, s, k = gate_vals.shape
+        d = out_buf.shape[-1]
+        out_buf = out_buf.reshape(b, -1, d)
         inv = torch.argsort(order, dim=1)
         slot_tk = torch.gather(slot, 1, inv)
         keep_tk = torch.gather(keep, 1, inv)
         gathered = torch.gather(out_buf, 1,
                                 slot_tk[..., None].expand(-1, -1, d))
-        weight = (gate_vals.reshape(b, s * k) * keep_tk).to(x.dtype)
-        out = (gathered * weight[..., None]).view(b, s, k, d).sum(2)
+        weight = (gate_vals.reshape(b, s * k) * keep_tk).to(out_buf.dtype)
+        return (gathered * weight[..., None]).view(b, s, k, d).sum(2)
+
+    def forward(self, x: torch.Tensor):
+        """x [B, S, d] -> (out [B, S, d], aux).  The routing, dispatch and
+        combine are row-local (``dist.sharding.row_local``): on a mesh
+        each rank routes its own batch rows."""
+        b, s, _ = x.shape
+        e, k = self.num_experts, self.top_k
+        logits = x.float() @ self.router.float()                 # [B, S, E]
+        probs = torch.softmax(logits, -1)
+        buf, gate_vals, gate_idx, order, slot, keep = row_local(
+            self._dispatch, x, probs, n_out=6)
+        out_buf = constrain_batch(self._expert_ffn(constrain_batch(buf)))
+        out = row_local(self._combine, out_buf, gate_vals, order, slot, keep,
+                        n_out=1)
 
         if self.shared is not None:
             sh = self.shared
@@ -153,9 +174,11 @@ class MoE(nn.Module):
             hs = act(x @ sh.w_gate.to(x.dtype)) * (x @ sh.w_up.to(x.dtype))
             out = out + hs @ sh.w_down.to(x.dtype)
 
-        # load-balancing aux loss (Switch-style), over the whole batch
+        # load-balancing aux loss (Switch-style), over the whole batch:
+        # each expert's choices counted (exactly, in fp32) by a compare
         me = probs.mean((0, 1))
-        ce = torch.zeros(e, device=x.device).index_add_(
-            0, gate_idx.reshape(-1), probs.new_ones(b * s * k)) / (b * s * k)
+        experts = like(torch.arange(e, device=x.device), gate_idx)
+        ce = (gate_idx[..., None] == experts).float().sum((0, 1, 2)) \
+            / (b * s * k)
         aux = e * torch.sum(me * ce)
         return out, aux

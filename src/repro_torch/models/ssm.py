@@ -15,13 +15,14 @@ to fp32 and multiplied by B.
 
 Mamba-2 (multi-head, a scalar decay a head, B and C shared by a group of
 heads): dt in fp32, ``da = exp(dt * a)`` a head and step, ``dbx = (dt *
-x) * B`` in fp32, as the reference's fused chunk body forms them.  Its
-heads fold into the scan's batch: da and dbx ``[B * H, L, P, N]`` (da a
-head's scalar expanded over (P, N): 4.2 MB a layer a decode step at
-zamba2's batch 4), c ``[B * H, L, N]``, h0 ``[B * H, P, N]``.  dt, x, B
-and C are made head-major before the products, so that dbx is born in
-that layout, and the final state is a free view of the reference's
-``[B, H, P, N]``.
+x) * B`` in fp32, as the reference's fused chunk body forms them.  dt,
+x, B and C are made head-major before the products, so that dbx is born
+in that layout: da and dbx ``[B, H, L, P, N]`` (da a head's scalar
+expanded over (P, N): 4.2 MB a layer a decode step at zamba2's batch 4),
+c ``[B, H, L, N]``, h0 ``[B, H, P, N]``, the final state the
+reference's layout.  ``kernels.ops.mamba_scan_heads`` folds the heads
+into the scan's batch (``[B * H, L, P, N]``), after a mesh has cut them
+over ``"model"``.
 
 Either scan is one ``kernels.ops.mamba_scan`` call (the ``mamba_scan``
 kernel on the card, its plain version on the CPU), for a whole prompt or
@@ -35,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import Maker, RMSNorm
+from repro_torch.dist.sharding import constrain_batch
+from repro_torch.models.common import Maker, RMSNorm, zeros
 
 
 def _causal_conv(x, w, b, state=None):
@@ -44,7 +46,7 @@ def _causal_conv(x, w, b, state=None):
     summed in the JAX package's order."""
     k = w.shape[0]
     if state is None:
-        state = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+        state = zeros(x, (x.shape[0], k - 1, x.shape[2]))
     xp = torch.cat([state, x], 1)
     y = 0
     for i in range(k):
@@ -83,22 +85,40 @@ class Mamba(nn.Module):
         xs, new_conv = _causal_conv(xs, self.conv_w, self.conv_b,
                                     state["conv"] if state else None)
         xs = F.silu(xs)
-        proj = xs @ self.w_x.to(dtype)
+        # the product sums over ssm_inner, which a mesh cuts over "model":
+        # anchored whole over "model" here (one reduction), so no later
+        # product meets it partial
+        proj = constrain_batch(xs @ self.w_x.to(dtype))
         # jax.nn.softplus has no threshold; torch's returns x past 20,
         # where log1p(exp(-x)) < 2.1e-9: under 1e-8 from the JAX package's
-        dt = F.softplus(proj[..., :r] @ self.w_dt.to(dtype)
-                        + self.dt_bias.to(dtype))                # [b, l, di]
+        dt = _by_channels(F.softplus(proj[..., :r] @ self.w_dt.to(dtype)
+                                     + self.dt_bias.to(dtype)))  # [b, l, di]
         b_t = proj[..., r:r + n]                                 # [b, l, n]
         c_t = proj[..., r + n:]                                  # [b, l, n]
         a = -torch.exp(self.a_log.float())                       # [di, n]
         h0 = (state["ssm"].float() if state else
-              x.new_zeros((x.shape[0], di, n), dtype=torch.float32))
+              zeros(x, (x.shape[0], di, n), torch.float32))
         da = torch.exp(dt.float()[..., None] * a)
-        dbx = (dt * xs).float()[..., None] * b_t.float()[..., None, :]
+        dbx = _by_channels((dt * xs).float())[..., None] \
+            * b_t.float()[..., None, :]
         y, h_last = ops.mamba_scan(da, dbx, c_t.float(), h0)
         y = y.to(dtype) + xs * self.d_skip.to(dtype)
         y = y * F.silu(z)
         return y @ self.w_out.to(dtype), {"conv": new_conv, "ssm": h_last}
+
+
+def _by_channels(t: torch.Tensor) -> torch.Tensor:
+    """A [b, l, di] tensor anchored with its batch over the data axes and
+    its channels over "model", as the scan's rule takes da and dbx (the
+    identity off a mesh)."""
+    return constrain_batch(t, extra=("", "model"))
+
+
+def _by_heads(t: torch.Tensor) -> torch.Tensor:
+    """A head-major [b, h, ...] tensor, contiguous, anchored with its
+    batch over the data axes and its heads over "model" (off a mesh only
+    made contiguous)."""
+    return constrain_batch(t, extra=("model",)).contiguous()
 
 
 class Mamba2(nn.Module):
@@ -128,33 +148,35 @@ class Mamba2(nn.Module):
         p = di // h
         b, l, _ = x.shape
         dtype = x.dtype
-        zxbcdt = x @ self.w_in.to(dtype)
+        # anchored whole over "model" on a mesh: one gather, where each of
+        # the slices below would gather it again (they do not fall on the
+        # shards' edges)
+        zxbcdt = constrain_batch(x @ self.w_in.to(dtype))
         z, xbc, dt_raw = (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * g * n],
                           zxbcdt[..., -h:])
         xbc, new_conv = _causal_conv(xbc, self.conv_w, self.conv_b,
                                      state["conv"] if state else None)
-        xbc = F.silu(xbc)
+        xbc = constrain_batch(F.silu(xbc))    # whole again: sliced below
         # head-major [b, h, l, ...]; B and C repeated from g groups to h
-        # heads in jnp.repeat's order
+        # heads in jnp.repeat's order.  On a mesh dt, B and C are cut over
+        # "model" by their heads here, so that da and dbx are born cut as
+        # the scan's rule takes them (no rank forms another's heads)
         xs = xbc[..., :di].unflatten(-1, (h, p)).transpose(1, 2).float(
         ).contiguous()
-        b_t, c_t = (xbc[..., di + i * g * n:di + (i + 1) * g * n]
-                    .unflatten(-1, (g, n)).repeat_interleave(h // g, 2)
-                    .transpose(1, 2).float().contiguous() for i in (0, 1))
+        b_t, c_t = (_by_heads(xbc[..., di + i * g * n:di + (i + 1) * g * n]
+                              .unflatten(-1, (g, n))
+                              .repeat_interleave(h // g, 2).transpose(1, 2)
+                              .float()) for i in (0, 1))
         # softplus as in Mamba-1 (under 1e-8 from the JAX package's)
-        dt = F.softplus(dt_raw.float() + self.dt_bias.float()
-                        ).transpose(1, 2).contiguous()          # [b, h, l]
+        dt = _by_heads(F.softplus(dt_raw.float() + self.dt_bias.float())
+                       .transpose(1, 2))                       # [b, h, l]
         a = -torch.exp(self.a_log.float())                       # [h]
         da = torch.exp(dt * a[:, None])[..., None, None].expand(b, h, l, p, n)
-        dbx = (dt[..., None] * xs)[..., None] * b_t[..., None, :]
+        dbx = _by_heads(dt[..., None] * xs)[..., None] * b_t[..., None, :]
         h0 = (state["ssm"].float() if state else
-              x.new_zeros((b, h, p, n), dtype=torch.float32))
-        y, h_last = ops.mamba_scan(da.reshape(b * h, l, p, n),
-                                   dbx.view(b * h, l, p, n),
-                                   c_t.view(b * h, l, n),
-                                   h0.reshape(b * h, p, n))
-        y = y.view(b, h, l, p) + xs * self.d_skip.float()[:, None, None]
+              zeros(x, (b, h, p, n), torch.float32))
+        y, h_last = ops.mamba_scan_heads(da, dbx, c_t, h0)
+        y = y + xs * self.d_skip.float()[:, None, None]
         y = y.transpose(1, 2).reshape(b, l, di).to(dtype)
         y = self.norm(y * F.silu(z))
-        return y @ self.w_out.to(dtype), {"conv": new_conv,
-                                          "ssm": h_last.view(b, h, p, n)}
+        return y @ self.w_out.to(dtype), {"conv": new_conv, "ssm": h_last}

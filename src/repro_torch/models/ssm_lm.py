@@ -15,7 +15,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
-from repro_torch.models.common import Embed, Maker, RMSNorm
+from repro_torch.models.common import Embed, Maker, RMSNorm, zeros
 
 
 def block_output(block, x):
@@ -68,7 +68,7 @@ class SsmLM(nn.Module):
         if mode == "train":
             x = run_blocks(self.layers, x, remat)
             return (self.embed.unembed(self.ln_f(x)),
-                    x.new_zeros((), dtype=torch.float32))
+                    zeros(x, (), torch.float32))
         convs, states = [], []
         for i, layer in enumerate(self.layers):
             c = None if cache is None else {

@@ -26,7 +26,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import Dense, Embed, Maker, RMSNorm
+from repro_torch.models.common import (Dense, Embed, Maker, RMSNorm,
+                                       positions_of, zeros)
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
 
@@ -123,7 +124,7 @@ class Decoder(nn.Module):
         if mode == "decode":
             positions = position_idx[:, None]
         else:
-            positions = torch.arange(s, device=x.device).expand(b, s)
+            positions = positions_of(x, b, s)
         if mode == "train":
             return self._train(x, positions, remat)
         new_cache = {}
@@ -140,7 +141,7 @@ class Decoder(nn.Module):
         return logits, new_cache
 
     def _train(self, x, positions, remat: bool):
-        aux = x.new_zeros((), dtype=torch.float32)
+        aux = zeros(x, (), torch.float32)
         for i, layer in enumerate((*self.dense_layers, *self.layers)):
             if remat and i >= len(self.dense_layers):
                 x, a = checkpoint(_train_layer, layer, x, positions,

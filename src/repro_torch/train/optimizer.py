@@ -16,6 +16,9 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,27 +51,53 @@ def schedule(cfg: OptimizerConfig, step: int) -> float:
 
 def init(params: dict) -> dict:
     """AdamW state for ``{name: parameter}``: fp32 master copies, zero
-    moments, step 0."""
+    moments (each with its parameter's placements on a mesh), step 0."""
     with torch.no_grad():
         return {
             "master": {n: p.detach().to(torch.float32, copy=True)
                        for n, p in params.items()},
-            "mu": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for n, p in params.items()},
-            "nu": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for n, p in params.items()},
+            "mu": {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in params.items()},
+            "nu": {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in params.items()},
             "step": 0,
         }
 
 
+def _owned_sum(g) -> torch.Tensor:
+    """A DTensor's local sum of squares in fp32, counted on one rank of
+    each group that holds the same shard (zero on the others), so that
+    the sum over every rank is the whole tensor's."""
+    coord = g.device_mesh.get_coordinate()
+    first = all(c == 0 for c, p in zip(coord, g.placements)
+                if p.is_replicate())
+    s = g.to_local().float().square().sum()
+    return s if first else torch.zeros_like(s)
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of every element's square, in fp32 (each tensor's
-    sum, then their sum, in order)."""
+    sum, then their sum, in order).  Of DTensors (a mesh over every rank
+    of the default group): each tensor's sum is its ranks' local sums,
+    added by one all-reduce of them all; then the same ordered sum, the
+    same on every rank."""
+    tensors = list(tensors)
+    if tensors and is_dtensor(tensors[0]):
+        sums = torch.stack([_owned_sum(g) for g in tensors])
+        dist.all_reduce(sums)
+        sums = list(sums)
+    else:
+        sums = [g.float().square().sum() for g in tensors]
     total = None
-    for g in tensors:
-        s = g.float().square().sum()
+    for s in sums:
         total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its own memory, so written in place), or
+    a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -90,8 +119,10 @@ def update(cfg: OptimizerConfig, params: dict, grads: dict,
     global norm, update ``state``'s moments and master weights, and copy
     the masters into ``params`` in their dtypes.  Each gradient is
     clipped (in fp32) as its parameter's turn comes, so no fp32 copy of
-    every gradient exists at once.  Returns {"lr", "grad_norm"} (the norm
-    before clipping, a 0-d tensor)."""
+    every gradient exists at once.  DTensors (each gradient, master and
+    moment placed as its parameter) are updated on their local shards.
+    Returns {"lr", "grad_norm"} (the norm before clipping, a 0-d plain
+    tensor)."""
     gnorm = global_norm(grads.values())
     scale = _clip_scale(gnorm, cfg.clip_norm)
     state["step"] += 1
@@ -101,8 +132,10 @@ def update(cfg: OptimizerConfig, params: dict, grads: dict,
     b1c = float(f(1.0) - f(cfg.b1) ** f(step))
     b2c = float(f(1.0) - f(cfg.b2) ** f(step))
     for name, p in params.items():
-        g = grads[name].float() * scale
-        master, mu, nu = (state[k][name] for k in ("master", "mu", "nu"))
+        g = _local(grads[name]).float() * scale
+        master, mu, nu = (_local(state[k][name])
+                          for k in ("master", "mu", "nu"))
+        p = _local(p)
         mu.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         nu.mul_(cfg.b2).add_(g.square_() * (1 - cfg.b2))
         step_dir = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
