@@ -134,12 +134,16 @@ Phases (any failure exits non-zero; no phase catches its own):
      launches exact and the loss falling, and a straight 30-step run
      against the same run resumed from its checkpoint of 20, every
      parameter and optimizer tensor torch.equal; then ``launch.dryrun
-     --all`` on the 16 x 16 mesh: 32 cells OK and 8 SKIP, traced on
-     ``meta`` with no kernel launched and no card memory allocated,
-     each cell's numbers logged, the five largest t_compute, and each
-     dense prefill cell's products outside the kernel ops against
-     ``core.model_gemms``.  Each example's launches go on a line of
-     their own.
+     --all`` on the 16 x 16 and the 2 x 16 x 16 meshes (started after
+     phase 1, each in a process of its own beside the card's phases:
+     it needs no card): each exits 0 with 32 cells OK and 8 SKIP, each
+     step traced whole and partitioned over a fake process group of
+     256 or 512 ranks, on ``meta``, in a process that never initialised
+     CUDA and left no group behind, each cell's numbers logged
+     (per-device flops, collective bytes, t_collective), the five
+     largest t_compute and t_collective, and each dense prefill cell's
+     products outside the kernel ops against ``core.model_gemms``.
+     Each example's launches go on a line of their own.
 
  13. the array mesh as ranks (``dist.ranks``; it runs right after phase
      9, on phase 4's weights): ranks sharing the card over gloo, spawned
@@ -169,9 +173,9 @@ Phases (any failure exits non-zero; no phase catches its own):
      memory over gloo), on the (2, 2) ``("data", "model")`` mesh and on
      the (1, 4) one ``make_host_mesh`` gives 4 ranks.  First one process
      without a mesh: one step's gradients in bf16 and in fp32 (kept on
-     the card, mapped into the ranks), and ``Run``'s 3 fp32 steps.  On
+     the card, mapped into the ranks), and ``Run``'s 2 fp32 steps.  On
      each mesh every rank: the same step's gradients, gathered, within
-     ``TRAIN_GRAD_TOL`` (relative L2) of one process's; ``Run``'s 3 fp32
+     ``TRAIN_GRAD_TOL`` (relative L2) of one process's; ``Run``'s 2 fp32
      steps, the losses within ``MESH_LOSS_RTOL`` of one process's and
      falling, each rank launching flash_attention, flash_attention_bwd,
      mamba_scan and mamba_scan_bwd on its local shard exactly as often
@@ -182,9 +186,27 @@ Phases (any failure exits non-zero; no phase catches its own):
      (gathered by every rank, written by rank 0) restored on (1, 4) and
      in one process: every array torch.equal to the file.
 
-Phases 10 to 12 and 14 run last, after phase 9's weights are freed, and
-free what they make.  Ends with the ``kernels`` JSON line (a row per route, each with
-its own path's launches and what its times were taken at), the card's
+ 15. serving on a mesh (``Model.prefill`` and ``Model.decode_step`` with
+     the weights DTensors placed by the inference rules, the cache at
+     ``cache_axes``): gemma-7b and zamba2-1.2b at full width, on 4 ranks
+     sharing the card over ``dist.ranks.HOST_STAGED``, on the (2, 2)
+     and (1, 4) meshes, a batch of 4 prompts of 32 tokens, a prefill and
+     8 greedy decode steps.  One process serves each first without a
+     mesh (bf16 at full depth, fp32 at ``MESH_SERVE_DEPTH``); its
+     weights stay on the card and reach the ranks by CUDA IPC, each
+     rank taking its shards.  On every rank: the gathered logits of the
+     prefill and each step within 2e-2 (bf16, fed one process's tokens)
+     and 1e-4 (fp32) relative L2 of one process's, the fp32 greedy
+     tokens equal; flash_attention, flash_decode and mamba_scan
+     launched on the rank's local shard exactly as often as one
+     process launches them; rank 0's first flash_decode held to its
+     plain version.  Logged: rank 0's ms a decode step, its collectives
+     a step (count, MiB, share of the step), each rank's peak card
+     memory.
+
+Phases 10 to 12, 14 and 15 run last, after phase 9's weights are freed,
+and free what they make.  Ends with the ``kernels`` JSON line (a row per
+route, each with its own path's launches and what its times were taken at), the card's
 name and power limit, and the result line ``{"ok": true, "device":
 {...}}``.
 """
@@ -3205,10 +3227,10 @@ def training_phase(device="cuda") -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 #: phase 14's run: ``launch.train`` with phase 11's flags at a global batch
-#: of 4 x 1024 (each data replica of (2, 2) at phase 11's 2 x 1024), 3
+#: of 4 x 1024 (each data replica of (2, 2) at phase 11's 2 x 1024), 2
 #: steps, in fp32, at ``TRAIN_GATE_DEPTH``
 MESH_TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--batch", "4", "--seq", "1024",
-                   "--lr", "1e-3", "--steps", "3", "--log-every", "1"]
+                   "--lr", "1e-3", "--steps", "2", "--log-every", "1"]
 #: the two meshes of 4 ranks: each data replica at phase 11's batch, and
 #: the one ``make_host_mesh`` gives 4 ranks
 MESH_TRAIN_SHAPES = ((2, 2), (1, 4))
@@ -3305,7 +3327,7 @@ def mesh_train_rank(rank: int, n: int, shape, ref: dict, ckpt_dir: str,
     """What each rank of phase 14 runs on a ``shape`` mesh of the ranks:
     the transport's floor; one step's gradients in bf16 held to ``ref``'s
     (one process's, mapped from the parent); then ``launch.train.Run``'s
-    3 fp32 steps on the mesh (the main path; the first step's gradients,
+    2 fp32 steps on the mesh (the main path; the first step's gradients,
     gathered as the optimizer receives them, held to ``ref``'s fp32
     ones), launches counted by step, saving to ``ckpt_dir``; with
     ``resume_dir``, a run resumed from the checkpoint another mesh saved
@@ -3414,7 +3436,7 @@ def transport_floor(device: str, reps: int = 3) -> dict:
 
 def mesh_reference(device: str) -> dict:
     """Phase 14's one process without a mesh: one step's gradients in bf16
-    and fp32 (kept on the card, mapped into the ranks) and ``Run``'s 3 fp32
+    and fp32 (kept on the card, mapped into the ranks) and ``Run``'s 2 fp32
     steps (losses, ms a step, peak GiB)."""
     ref = {"grads": {}}
     for dtype in ("bfloat16", "float32"):
@@ -3563,6 +3585,286 @@ def mesh_training_phase(name_limit: str, device: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: serving on a mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: phase 15's models, at full width: gemma-7b (flash_attention at prefill,
+#: flash_decode a step) and zamba2-1.2b (mamba_scan and its shared
+#: block's attention), each on both meshes of 4 ranks
+MESH_SERVE_ARCHS = ("gemma-7b", "zamba2-1.2b")
+MESH_SERVE_SHAPES = ((2, 2), (1, 4))
+#: the traffic: a batch of 4 prompts of 32 tokens, a prefill and 8 greedy
+#: decode steps
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 4, 32, 8
+#: the fp32 gate's depth (zamba2 at 7: one application of its shared
+#: block and a tail block, as phase 10's decode gate cuts it)
+MESH_SERVE_DEPTH = {"gemma-7b": 2, "zamba2-1.2b": 7}
+#: a row's relative L2 distance from one process's logits: bf16 at full
+#: depth (the zoo's gate), fp32 at ``MESH_SERVE_DEPTH``
+MESH_SERVE_TOL = {"bfloat16": ZOO_LOGITS_TOL, "float32": 1e-4}
+#: the models whose bf16 gate is held against one process's fp32 logits
+#: at full depth (fed the same tokens): the mesh's bf16 logits as close
+#: to them as one process's bf16 logits are, plus ``MESH_SERVE_TOL``.
+#: zamba2-1.2b's bf16 logits sit ~5% from one process's bf16 logits on
+#: a mesh, about as far as bf16 sits from fp32 at its depth (phase 14
+#: finds the same of its gradients); gemma-7b in fp32 at full depth (34 GB)
+#: fits beside nothing else, and its direct gate holds
+MESH_SERVE_F32_REF = ("zamba2-1.2b",)
+
+
+def mesh_serve_cfg(arch: str, dtype: str):
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, num_layers=MESH_SERVE_DEPTH[arch])
+    return cfg
+
+
+def mesh_serve_steps(model, prompts, forced=None, on_step=None) -> dict:
+    """The user's serving calls: ``Model.prefill``, the cache padded by
+    ``serve.expand_cache``, then ``MESH_SERVE_STEPS`` decode steps, each
+    fed the last step's greedy token (or ``forced``'s: one process's
+    tokens, so that a bf16 run's logits stay comparable after a token
+    that rounds the other way).  Returns each step's logits (gathered,
+    fp32, on the host) and the greedy tokens; ``on_step(i)`` runs after
+    each decode step's logits are back."""
+    b, p = prompts.shape
+    logits, cache = model.prefill(prompts)
+    cache = expand_cache(model, cache, b, p + MESH_SERVE_STEPS + 1)
+    out, tokens = [], []
+
+    def keep(lg):
+        lg = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+        lg = lg.float()
+        out.append(lg.cpu())
+        tokens.append(lg.argmax(-1).cpu())
+    keep(logits)
+    pos = torch.full((b,), p, dtype=torch.int32, device=model.device)
+    for i in range(MESH_SERVE_STEPS):
+        tok = tokens[-1] if forced is None else forced[i]
+        logits, cache = model.decode_step(
+            tok.to(model.device)[:, None], cache, pos)
+        keep(logits)
+        pos = pos + 1
+        if on_step is not None:
+            on_step(i)
+    return {"logits": torch.stack(out), "tokens": torch.stack(tokens)}
+
+
+def mesh_serve_reference(device: str) -> dict:
+    """Phase 15's one process: every (arch, dtype) served without a mesh,
+    its weights kept on the card (mapped into the ranks by CUDA IPC), its
+    logits and tokens on the host.  By (arch, dtype)."""
+    import numpy as np
+    out = {}
+    for arch in MESH_SERVE_ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = mesh_serve_cfg(arch, dtype)
+            model = build_model(cfg, device=device, generator=torch.Generator(
+                device).manual_seed(0))
+            prompts = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_SERVE_PROMPT))
+            reset_peak(device)
+            sync(device)
+            t0 = time.perf_counter()
+            got = mesh_serve_steps(model, prompts)
+            sync(device)
+            got.update(prompts=prompts, seconds=time.perf_counter() - t0,
+                       peak_gib=peak_gib(device), values=dict(
+                           model.net.named_parameters()))
+            out[(arch, dtype)] = got
+            del model
+        if arch in MESH_SERVE_F32_REF:
+            one = out[(arch, "bfloat16")]
+            cfg = dataclasses.replace(get_config(arch), dtype="float32")
+            model = build_model(cfg, device=device, generator=torch.Generator(
+                device).manual_seed(0))
+            one["f32_logits"] = mesh_serve_steps(
+                model, one["prompts"], forced=one["tokens"])["logits"]
+            one["f32_rel"] = max(_rel(a, b) for a, b in zip(
+                one["logits"], one["f32_logits"]))
+            del model
+            reset_peak(device)
+    return out
+
+
+def mesh_serve_rank(rank: int, n: int, shape, ref: dict,
+                    device: str) -> dict:
+    """What each rank of phase 15 runs on a ``shape`` mesh of the ranks:
+    for every (arch, dtype) of ``ref``, a model built on ``meta`` and
+    placed by the inference rules from one process's weights (each rank
+    takes its shards of them), served by ``mesh_serve_steps``: bf16
+    teacher-forced by one process's tokens, fp32 on its own greedy
+    tokens; launches counted; rank 0's first flash_decode call captured
+    for the kernel check, its decode steps timed with their
+    collectives."""
+    from repro_torch.train.trainer import place
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dmesh = launch_device_mesh(abstract_mesh(shape, ("data", "model")),
+                               device)
+    out = {}
+    for (arch, dtype), one in ref.items():
+        cfg = mesh_serve_cfg(arch, dtype)
+        model = build_model(cfg, device="meta")
+        place(model, dmesh, inference=True, values=one["values"])
+        captured = []
+        real = fa.flash_decode
+
+        def capture(q, k, v, lengths, **kw):
+            o = real(q, k, v, lengths, **kw)
+            if not captured:
+                captured.append(((q.clone(), k.clone(), v.clone(),
+                                  lengths.clone()), kw, o.clone()))
+            return o
+        times, coll = [], []
+        last = [0.0, dist_ranks.collective_totals()]
+
+        def on_step(i):
+            sync(device)
+            now = time.perf_counter()
+            totals = dist_ranks.collective_totals()
+            times.append(now - last[0])
+            coll.append({op: tuple(a - b for a, b in zip(
+                v, last[1].get(op, (0, 0, 0)))) for op, v in totals.items()})
+            last[:] = [time.perf_counter(), dist_ranks.collective_totals()]
+        reset_counts()
+        reset_peak(device)
+        sync(device)
+        last[0] = time.perf_counter()
+        fa.flash_decode = capture
+        try:
+            got = mesh_serve_steps(
+                model, one["prompts"],
+                forced=one["tokens"] if dtype == "bfloat16" else None,
+                on_step=on_step)
+        finally:
+            fa.flash_decode = real
+        sync(device)
+        launched = counts()
+        want = one["logits"]
+        rel = max(_rel(g, w) for g, w in zip(got["logits"], want))
+        rec = {"launched": launched, "rel": rel,
+               "f32_rel": None if "f32_logits" not in one else max(
+                   _rel(g, w) for g, w in zip(got["logits"],
+                                              one["f32_logits"])),
+               "tokens_equal": bool(torch.equal(got["tokens"],
+                                                one["tokens"])),
+               "finite": bool(torch.isfinite(got["logits"]).all()),
+               "times": times[1:], "coll": coll[1:],
+               "peak_gib": peak_gib(device),
+               "placements": {n: str(tuple(p.placements)) for n, p in list(
+                   model.net.named_parameters())[:3]}}
+        if rank == 0 and captured:
+            (q, k, v, lens), kw, o = captured[0]
+            plain = ref_flash_decode(q, k, v, lens, **kw)
+            rec["kernel"] = (tuple(q.shape), tuple(k.shape), float(
+                (o.float() - plain.float()).abs().max()), float(
+                plain.float().pow(2).mean().sqrt()))
+        out[(arch, dtype)] = rec
+        del model, captured
+        reset_peak(device)
+    return out
+
+
+def ref_flash_decode(q, k, v, lengths, **kw):
+    return ref.flash_decode_ref(q, k, v, lengths, **kw)
+
+
+def check_mesh_serve(shape, results: list, ref: dict,
+                     name_limit: str) -> None:
+    """Phase 15's gates on one mesh's ranks: logits, tokens, launches, the
+    kernel on rank 0's shard; then the logs."""
+    for (arch, dtype), one in ref.items():
+        cfg = mesh_serve_cfg(arch, dtype)
+        tol = MESH_SERVE_TOL[dtype]
+        pre, step = zoo_launches(cfg)
+        want = {k: pre.get(k, 0) + step.get(k, 0) * MESH_SERVE_STEPS
+                for k in counts()}
+        recs = [r[(arch, dtype)] for r in results]
+        rels = [r["rel"] for r in recs]
+        log(f"mesh serve {shape} {arch} {dtype} depth {cfg.num_layers}: "
+            f"logits of the prefill and {MESH_SERVE_STEPS} steps (gathered "
+            f"on every rank) against one process's, a row's relative L2 at "
+            f"most {[f'{x:.3g}' for x in rels]} by rank (limit {tol}); "
+            f"{'fed one process tokens' if dtype == 'bfloat16' else 'greedy'}"
+            f", own tokens equal one process's on every rank: "
+            f"{[r['tokens_equal'] for r in recs]}")
+        assert all(r["finite"] for r in recs), (shape, arch, dtype)
+        if "f32_rel" in one:
+            f32 = [r["f32_rel"] for r in recs]
+            log(f"mesh serve {shape} {arch} bfloat16: against one process's "
+                f"fp32 logits at full depth (fed the same tokens): the mesh "
+                f"{[f'{x:.3g}' for x in f32]} by rank, one process's bf16 "
+                f"{one['f32_rel']:.3g}; limit one process's + {tol}")
+            assert max(f32) <= one["f32_rel"] + tol, (shape, arch, f32,
+                                                      one["f32_rel"])
+        else:
+            assert max(rels) <= tol, (shape, arch, dtype, rels)
+        if dtype == "float32":
+            assert all(r["tokens_equal"] for r in recs), (shape, arch)
+        for rank, r in enumerate(recs):
+            assert r["launched"] == want, (shape, arch, dtype, rank,
+                                           r["launched"], want)
+        log(f"mesh serve {shape} {arch} {dtype}: launches on each rank "
+            f"{ {k: v for k, v in want.items() if v} } (one process's "
+            f"count, each on the rank's local shard); placements "
+            f"{recs[0]['placements']}")
+        if "kernel" in recs[0]:
+            qs, ks, err, rms = recs[0]["kernel"]
+            kdtype = "bfloat16" if dtype == "bfloat16" else "float32"
+            ktol = ZOO_ATTN_TOL if kdtype == "bfloat16" else 1e-4
+            log(f"mesh serve {shape} {arch} {dtype}: rank 0's first "
+                f"flash_decode on its local shard q {qs} k {ks}: max |err| "
+                f"{err:.3g} against its plain version (tolerance {ktol}), "
+                f"output RMS {rms:.3f}")
+            assert err <= ktol, (shape, arch, dtype, err)
+        if dtype != "bfloat16":
+            continue
+        r0 = recs[0]
+        steady = statistics.median(r0["times"])
+        calls = statistics.median(sum(c for c, _, _ in st.values())
+                                  for st in r0["coll"])
+        nbytes = statistics.median(sum(b for _, _, b in st.values())
+                                   for st in r0["coll"])
+        secs = statistics.median(sum(t for _, t, _ in st.values())
+                                 for st in r0["coll"])
+        log(f"mesh serve {shape} {arch}: rank 0 decode {steady * 1e3:.1f} ms"
+            f" a step (median of {len(r0['times'])} after the first; one "
+            f"process {one['seconds'] / (MESH_SERVE_STEPS + 1) * 1e3:.1f} ms"
+            f" a call, prefill included), collectives {calls:.0f} a step, "
+            f"{nbytes / 2**20:.2f} MiB of tensors, {1e3 * secs:.1f} ms "
+            f"({100 * secs / steady:.1f}% of the step); peak card memory by "
+            f"rank {[round(r['peak_gib'], 2) for r in recs]} GiB (one "
+            f"process {one['peak_gib']:.2f}); {name_limit}")
+
+
+def mesh_serve_phase(name_limit: str, device: str = "cuda") -> None:
+    """Phase 15: ``Model.prefill`` and ``Model.decode_step`` on 4 ranks
+    sharing the card over ``dist.ranks.HOST_STAGED``, on the (2, 2) and
+    (1, 4) meshes, held to one process without a mesh."""
+    stage("phase 15: serving on a mesh of 4 ranks sharing the card")
+    t0 = time.perf_counter()
+    ref = mesh_serve_reference(device)
+    log(f"mesh serve: one process, {', '.join(MESH_SERVE_ARCHS)} at full "
+        f"width (bf16 at full depth, fp32 at depth "
+        f"{MESH_SERVE_DEPTH}), {MESH_SERVE_BATCH} x {MESH_SERVE_PROMPT} "
+        f"prompts and {MESH_SERVE_STEPS} decode steps, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in MESH_SERVE_SHAPES:
+            t0 = time.perf_counter()
+            results = dist_ranks.spawn(
+                mesh_serve_rank, 4, tmp, args=(shape, ref, device),
+                device=device, timeout_s=RANK_TIMEOUT_S,
+                deadline_s=RANK_DEADLINE_S, backend=dist_ranks.HOST_STAGED)
+            log(f"mesh serve {shape}: 4 ranks spawned, served and joined "
+                f"in {time.perf_counter() - t0:.1f} s")
+            check_mesh_serve(shape, results, ref, name_limit)
+    del ref
+    reset_peak(device)
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the examples, the planning example's backend check, the dry run
 # ---------------------------------------------------------------------------
 
@@ -3677,53 +3979,106 @@ def train_example() -> dict:
     return launched
 
 
-def dryrun_phase() -> None:
-    """``launch.dryrun --all`` on the production mesh: 32 cells OK and 8
-    SKIP (``long_500k`` under full attention), traced on ``meta`` with no
-    kernel launched and no memory allocated on the card.  Each cell's
-    numbers are logged; then every dense prefill cell's products outside
-    the kernel ops against ``core.model_gemms``."""
-    mesh = make_production_mesh()
-    cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
-    reset_counts()
-    allocated = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    records = dryrun.sweep(cells, mesh, verbose=False)
-    wall = time.perf_counter() - t0
-    assert sum(counts().values()) == 0, counts()
-    assert torch.cuda.memory_allocated() == allocated
-    ok, skip, fail = dryrun.summary(records)
-    log(f"dryrun: {ok} OK, {skip} SKIP, {fail} FAIL / {len(records)} cells "
-        f"on mesh {mesh.axis_sizes} in {wall:.1f} s (H100 constants: "
-        f"{dryrun.PEAK_FLOPS:.3g} flop/s bf16, {dryrun.HBM_BW:.3g} B/s)")
-    for r in records:
-        if r["status"] != "OK":
-            log(f"  {r['arch']:>22} {r['shape']:<12} {r['status']}")
-            continue
-        log(f"  {r['arch']:>22} {r['shape']:<12} flops "
-            f"{r['flops_global']:.4e} argument/device "
-            f"{r['bytes_per_device']['argument'] / 1e9:.3f} GB t_compute "
-            f"{r['t_compute']:.4e} s t_memory {r['t_memory']:.4e} s "
-            f"{r['bottleneck']}")
-    assert (ok, skip, fail) == (32, 8, 0), (ok, skip, fail)
-    top = sorted((r for r in records if r["status"] == "OK"),
-                 key=lambda r: -r["t_compute"])[:5]
-    log("dryrun: largest t_compute: " + "; ".join(
-        f"{r['arch']} {r['shape']} {r['t_compute']:.4f} s" for r in top))
-    for r in records:
-        cfg = get_config(r["arch"])
-        if r["shape"] != "prefill_32k" or cfg.family != "dense":
-            continue
-        want = sum(2.0 * op.gemm.m * op.gemm.k * op.gemm.n * op.gemm.count
-                   for op in gemm_workloads(cfg, SHAPES["prefill_32k"])
-                   if not op.dynamic)
-        log(f"dryrun: {r['arch']} prefill_32k products outside the kernel "
-            f"ops {r['aten_dot_flops']:.6e} flops, model_gemms "
-            f"(non-dynamic) {want:.6e}, ratio "
-            f"{r['aten_dot_flops'] / want:.6f}")
+#: the dry run's process: ``launch.dryrun.main`` with the arguments
+#: after the output path, then proof that it left no process group and
+#: never initialised CUDA
+DRYRUN_CODE = """
+import sys, torch, torch.distributed as dist
+from repro_torch.launch import dryrun
+rc = dryrun.main(["--all", "--json", sys.argv[1], *sys.argv[2:]])
+assert not dist.is_initialized(), "a process group was left behind"
+assert not torch.cuda.is_initialized(), "the dry run initialised CUDA"
+sys.exit(rc)
+"""
 
 
-def examples_phase() -> dict:
+def start_dryruns(tmp: str) -> dict:
+    """``launch.dryrun --all`` on the 16 x 16 and the 2 x 16 x 16 meshes,
+    each in a process of its own started now, beside the card's phases:
+    the dry run needs no card (its traces run on ``meta`` over a fake
+    process group) and takes minutes of one CPU core.  Phase 12 reads
+    them (:func:`dryrun_phase`)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p), CUDA_VISIBLE_DEVICES="")
+    out = {}
+    for name, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        path = os.path.join(tmp, f"dryrun_{name}.jsonl")
+        logf = open(os.path.join(tmp, f"dryrun_{name}.log"), "w")
+        proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, path,
+                                 *extra], env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        out[name] = (proc, path, logf, time.perf_counter())
+    return out
+
+
+def stop_dryruns(runs: dict) -> None:
+    for proc, _, logf, _ in runs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        logf.close()
+
+
+def dryrun_phase(runs: dict) -> None:
+    """The two dry runs :func:`start_dryruns` started: each exits 0 with
+    32 cells OK and 8 SKIP (``long_500k`` under full attention), each
+    step traced whole and partitioned over a fake process group of the
+    mesh's ranks, on ``meta``, in a process that never initialised CUDA
+    and left no process group behind (so no kernel launched and no card
+    memory allocated).  Each cell's numbers are logged; then every dense
+    prefill cell's products outside the kernel ops against
+    ``core.model_gemms``."""
+    for name, (proc, path, logf, t0) in runs.items():
+        rc = proc.wait(timeout=1200)
+        wall = time.perf_counter() - t0
+        logf.flush()
+        with open(path) as f:
+            records = [json.loads(line) for line in f]
+        ok, skip, fail = dryrun.summary(records)
+        mesh = records[0]["mesh"] if records else name
+        log(f"dryrun {name}: {ok} OK, {skip} SKIP, {fail} FAIL / "
+            f"{len(records)} cells, exit {rc}, {wall:.1f} s in a process "
+            f"of its own beside phases 2-11 (H100 constants: "
+            f"{dryrun.PEAK_FLOPS:.3g} flop/s bf16, {dryrun.HBM_BW:.3g} B/s,"
+            f" links {records[0].get('link_bw') if records else None} B/s)")
+        assert rc == 0, (name, rc, open(logf.name).read()[-3000:])
+        for r in records:
+            if r["status"] != "OK":
+                log(f"  {r['arch']:>22} {r['shape']:<12} {r['status']}")
+                continue
+            coll = r["collective_bytes_per_device"]
+            log(f"  {r['arch']:>22} {r['shape']:<12} flops "
+                f"{r['flops_global']:.4e} ({r['flops_per_device']:.4e} a "
+                f"device) argument/device "
+                f"{r['bytes_per_device']['argument'] / 1e9:.3f} GB "
+                f"collectives/device {coll['total'] / 1e9:.3f} GB t_compute "
+                f"{r['t_compute']:.4e} s t_memory {r['t_memory']:.4e} s "
+                f"t_collective {r['t_collective']:.4e} s {r['bottleneck']};"
+                f" traced in {r['trace_s']} + {r['partitioned_trace_s']} s")
+        assert (ok, skip, fail) == (32, 8, 0), (name, ok, skip, fail)
+        for term in ("t_compute", "t_collective"):
+            top = sorted((r for r in records if r["status"] == "OK"),
+                         key=lambda r: -r[term])[:5]
+            log(f"dryrun {mesh}: largest {term}: " + "; ".join(
+                f"{r['arch']} {r['shape']} {r[term]:.4f} s" for r in top))
+        if name != "16x16":
+            continue
+        for r in records:
+            cfg = get_config(r["arch"])
+            if r["shape"] != "prefill_32k" or cfg.family != "dense":
+                continue
+            want = sum(2.0 * op.gemm.m * op.gemm.k * op.gemm.n
+                       * op.gemm.count
+                       for op in gemm_workloads(cfg, SHAPES["prefill_32k"])
+                       if not op.dynamic)
+            log(f"dryrun: {r['arch']} prefill_32k products outside the "
+                f"kernel ops {r['aten_dot_flops']:.6e} flops, model_gemms "
+                f"(non-dynamic) {want:.6e}, ratio "
+                f"{r['aten_dot_flops'] / want:.6f}")
+
+
+def examples_phase(dryruns: dict) -> dict:
     """Phase 12; returns each example's launches."""
     stage("phase 12: the examples on the card")
     t0 = time.perf_counter()
@@ -3732,7 +4087,7 @@ def examples_phase() -> dict:
            "torch_minisa_plan": plan_example(),
            "torch_train_lm": train_example()}
     stage("phase 12: the dry run")
-    dryrun_phase()
+    dryrun_phase(dryruns)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3752,6 +4107,15 @@ def main(argv) -> int:
     nvcc = subprocess.run([build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     log("nvcc:", nvcc.stdout.strip().splitlines()[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        dryruns = start_dryruns(tmp)
+        try:
+            return run_phases(name_limit, dryruns)
+        finally:
+            stop_dryruns(dryruns)
+
+
+def run_phases(name_limit: str, dryruns: dict) -> int:
     t0 = time.perf_counter()
     info = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
@@ -3831,8 +4195,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     zoo, zoo_by_arch = zoo_phase(name_limit)
     train, train32 = training_phase()
-    ex = examples_phase()
+    ex = examples_phase(dryruns)
     mesh_training_phase(name_limit)
+    mesh_serve_phase(name_limit)
     mla = zoo_by_arch["deepseek-v2-236b"]
     falcon, zamba = zoo_by_arch["falcon-mamba-7b"], zoo_by_arch["zamba2-1.2b"]
 

@@ -53,6 +53,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 # name -> (priority, candidate mesh axes).  Lower priority wins contended
 # mesh axes; candidates are tried in order; tuple candidates are joint
 # (multi-axis) shardings.
@@ -231,15 +233,58 @@ def placements(spec: tuple, tensor_ndim: int, mesh) -> tuple:
                  for n in names)
 
 
+def local_shape_and_offset(shape, device_mesh, where) -> tuple:
+    """(this rank's shard's shape, its offset in the whole tensor) of a
+    tensor of ``shape`` placed at ``where`` on ``device_mesh``.  DTensor
+    reckons it with small host index tensors, which a tracer of a step
+    (``launch.graph_analysis``) does not see."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        local, offset = compute_local_shape_and_global_offset(
+            tuple(shape), device_mesh, tuple(where))
+    return tuple(local), tuple(offset)
+
+
 def distribute(t, spec: tuple, device_mesh):
     """``t``, the same whole tensor on every rank, as a DTensor on
     ``device_mesh`` placed by ``spec``: each rank keeps its own shard of
-    it, with no collective."""
-    from torch.distributed.tensor import distribute_tensor
+    it, with no collective.  A ``meta`` tensor (the dry run's) becomes a
+    DTensor of a ``meta`` shard of the local shape
+    (``DTensor.from_local``)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.utils._python_dispatch import _disable_current_modes
 
-    return distribute_tensor(t, device_mesh,
-                             placements(spec, t.ndim, device_mesh),
-                             src_data_rank=None)
+    where = placements(spec, t.ndim, device_mesh)
+    # placing a whole input is the set-up the JAX package's in_shardings
+    # do before a step: a tracer of the step (launch.graph_analysis) does
+    # not see it
+    with _disable_current_modes():
+        if t.device.type != "meta":
+            return distribute_tensor(t, device_mesh, where,
+                                     src_data_rank=None)
+        shape, _ = local_shape_and_offset(t.shape, device_mesh, where)
+        return DTensor.from_local(
+            torch.empty(shape, dtype=t.dtype, device="meta"), device_mesh,
+            where, run_check=False, shape=t.shape, stride=t.stride())
+
+
+def place_tree(axes_tree, tree, device_mesh):
+    """A tree of tensors (each whole and the same on every rank, or a
+    DTensor already on ``device_mesh``) as DTensors placed by
+    :func:`tree_shardings` of ``axes_tree``: a plain leaf is cut with no
+    collective (:func:`distribute`), a DTensor redistributed where its
+    placements differ."""
+    def put(axes, t):
+        spec = spec_for(axes, tuple(t.shape), device_mesh)
+        if not is_dtensor(t):
+            return distribute(t, spec, device_mesh)
+        want = placements(spec, t.ndim, device_mesh)
+        return t if tuple(t.placements) == want else t.redistribute(
+            device_mesh, want)
+    return _zip_tree(axes_tree, tree, put)
 
 
 def shard_like(t, ref):
@@ -272,6 +317,41 @@ def like(t, ref):
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
                               run_check=False)
+
+
+class _GradPlacedAs(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous on each rank and,
+    with ``placed``, redistributed to the placements of its input."""
+
+    @staticmethod
+    def forward(ctx, t, placed):
+        ctx.mesh, ctx.where = t.device_mesh, tuple(t.placements)
+        ctx.placed = placed
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        if ctx.placed and tuple(g.placements) != ctx.where:
+            g = g.redistribute(ctx.mesh, ctx.where)
+        # on the shard itself: a DTensor whose global strides read
+        # contiguous takes ``contiguous()`` as a no-op, its shard not
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride()), None
+
+
+def grad_placed_as(t, placed: bool = True):
+    """``t``, whose gradient (when one flows back) comes placed as ``t``
+    is (only contiguous, without ``placed``), each rank's shard
+    contiguous: DTensor's rules may cut a product's gradient along a dim
+    a view of ``t`` cannot keep cut, and the gradient of a transposed
+    shard cannot be viewed back.  The identity on a plain tensor or
+    without a gradient."""
+    if not is_dtensor(t) or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _GradPlacedAs.apply(t, placed)
 
 
 def row_local(fn, *args, n_out: int, whole: tuple = ()):
@@ -309,21 +389,49 @@ def row_local(fn, *args, n_out: int, whole: tuple = ()):
 # In-graph constraints
 # ---------------------------------------------------------------------------
 
-def _constrain(x, spec_fn):
+def _constrain(x, spec_fn, grad: bool = True):
     """``x`` redistributed to ``spec_fn({axis: size})`` on its mesh when
     it is a DTensor, the twin of the JAX package's
     ``with_sharding_constraint`` under a mesh; ``x`` itself otherwise,
-    as the JAX package's is with no mesh active."""
+    as the JAX package's is with no mesh active.  With ``grad`` its
+    gradient is constrained alike (:class:`_Anchor`); without, the
+    gradient goes back to ``x``'s own placements (DTensor's
+    redistribute)."""
     if not is_dtensor(x):
         return x
     mesh = x.device_mesh
     want = placements(spec_fn(mesh_sizes(mesh)), x.ndim, mesh)
+    if grad and torch.is_grad_enabled() and x.requires_grad:
+        return _Anchor.apply(x, want)
     return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
-def constrain_batch(x, extra: tuple = ()):
+class _Anchor(torch.autograd.Function):
+    """A DTensor redistributed to ``want``, whose gradient is
+    redistributed to ``want`` too: the transpose of the JAX package's
+    ``with_sharding_constraint``, which constrains the cotangent as it
+    constrains the value (DTensor's own redistribute sends the gradient
+    back to the input's placements, a partial sum left partial)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def constrain_batch(x, extra: tuple = (), grad: bool = True):
     """Anchor dim 0 to the data axes; ``extra`` names trailing dims after
-    the batch dim ('' / None = unsharded)."""
+    the batch dim ('' / None = unsharded); ``grad`` as :func:`_constrain`
+    takes it (False for the port's own anchors, which the JAX package
+    does not place)."""
     def spec_fn(sizes):
         bspec = leading_spec(tuple(x.shape), sizes)
         entries = [bspec[0] if bspec else None]
@@ -333,7 +441,7 @@ def constrain_batch(x, extra: tuple = ()):
                                     and x.shape[dim] % sizes[name] == 0)
                            else None)
         return tuple(entries)
-    return _constrain(x, spec_fn)
+    return _constrain(x, spec_fn, grad)
 
 
 def constrain_seq_scores(scores):

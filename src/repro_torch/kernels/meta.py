@@ -30,6 +30,23 @@ def on_meta(*tensors) -> bool:
     return all(t.device.type == "meta" for t in tensors)
 
 
+def counted(run, reckon, *tensors, **kw):
+    """``run()``, a kernel op's plain version on real tensors.  While a
+    tracer listens (:data:`SINKS`), the ops it dispatches are hidden from
+    the tracer and the kernel's work is reckoned instead, as on ``meta``:
+    ``reckon`` (this module's function of the op) on ``meta`` twins of
+    ``tensors`` with ``kw``.  So a step run for real counts what its
+    trace on ``meta`` counts."""
+    if not SINKS:
+        return run()
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        out = run()
+        reckon(*(None if t is None else t.to("meta") for t in tensors), **kw)
+    return out
+
+
 def _reckon(name: str, flops: float, inputs, outputs) -> None:
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*inputs, *outputs) if t is not None)

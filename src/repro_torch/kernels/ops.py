@@ -21,7 +21,10 @@ results bit for bit the same.
 
 On the ``meta`` device the model zoo's three kernel ops (and their
 backwards) take ``kernels.meta``: outputs of the right shapes, no data,
-and the kernel's reckoned work told to the dry run's tracer.
+and the kernel's reckoned work told to the dry run's tracer.  On the CPU,
+while that tracer listens, their plain versions run hidden from it and
+reckon the same work (``kernels.meta.counted``), so a step run for real
+counts what its ``meta`` trace counts.
 
 On a mesh (training with the parameters as DTensors, ``train.trainer``)
 ``flash_attention``, ``mamba_scan`` and ``mamba_scan_heads`` are given
@@ -105,10 +108,44 @@ def flash_decode(q, k, v, lengths=None, *, bkv=128, scale=1.0):
     q: [B, sq, d], k, v: [B, skv, d], all float32 or all bfloat16 (the
     result takes their dtype), lengths: [B] or [B, 1] true KV lengths
     (defaults to the full skv for every request).  ``bkv`` sets the plain
-    version's KV blocks."""
+    version's KV blocks.  With a heads dim, q: [B, H, sq, d] against k,
+    v: [B, H, skv, d] (GQA's query groups against a head-major cache),
+    the heads fold into the batch ([B * H, ...], each head at its row's
+    length) for the same launch.
+
+    DTensors run on each rank's batch rows and heads (:func:`_rule`):
+    with a heads dim, the KV heads over ``"model"``; without one (MLA's
+    latent cache, one key row shared by a request's heads), q's rows
+    (the heads) over ``"model"`` and k, v whole there.  A cache cut
+    along its sequence (``kvseq``, where the heads do not take
+    ``"model"``) is gathered over ``"model"`` before the region: each
+    rank then attends to every key of its rows."""
+    if any(_sh.is_dtensor(t) for t in (q, k, v)):
+        fn = functools.partial(_flash_decode, bkv=bkv, scale=scale)
+        if lengths is None:
+            lengths = torch.full((q.shape[0],), k.shape[-2],
+                                 dtype=torch.int32, device=q.device)
+        kv_dim = 1 if q.ndim == 4 else None
+        return _on_mesh(fn, (q, k, v, lengths), (1, kv_dim, kv_dim, None),
+                        (1,), q.shape[1])
+    return _flash_decode(q, k, v, lengths, bkv=bkv, scale=scale)
+
+
+def _flash_decode(q, k, v, lengths, *, bkv, scale):
+    if q.ndim == 4:
+        b, h = q.shape[:2]
+        lengths = _lengths(lengths, b, k.shape[2], q.device)
+        out = _flash_decode(q.reshape(b * h, *q.shape[2:]),
+                            k.reshape(b * h, *k.shape[2:]),
+                            v.reshape(b * h, *v.shape[2:]),
+                            lengths.repeat_interleave(h), bkv=bkv,
+                            scale=scale)
+        return out.view(b, h, *out.shape[1:])
     lengths = _lengths(lengths, q.shape[0], k.shape[1], q.device)
     if _on_cpu(q, k, v):
-        return ref.flash_decode_ref(q, k, v, lengths, bkv=bkv, scale=scale)
+        return _meta.counted(lambda: ref.flash_decode_ref(
+            q, k, v, lengths, bkv=bkv, scale=scale), _meta.flash_decode,
+            q, k, v)
     if _meta.on_meta(q, k, v):
         return _meta.flash_decode(q, k, v)
     return _fa.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -227,7 +264,7 @@ def _flash_attention(q, k, v, *, causal, bq, bkv):
         return x.transpose(1, 2).reshape(b * h, x.shape[1], d)
     qf = _pad_rows(fold(q), bq_)
     kf, vf = _pad_rows(fold(k), bkv_), _pad_rows(fold(v), bkv_)
-    if not _on_cpu(qf, kf, vf):
+    if not _on_cpu(qf, kf, vf) or _meta.SINKS:
         qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
     o = attention_core(qf, kf, vf, causal=causal, bq=bq_, bkv=bkv_,
                        kv_len=sk)
@@ -241,9 +278,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, bq, bkv, kv_len):
         if _on_cpu(q, k, v):
-            o, lse = ref.flash_attention_ref(q, k, v, causal=causal, bq=bq,
-                                             bkv=bkv, kv_len=kv_len,
-                                             return_lse=True)
+            o, lse = _meta.counted(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, bq=bq, bkv=bkv, kv_len=kv_len,
+                return_lse=True), _meta.flash_attention, q, k, v,
+                causal=causal, kv_len=kv_len, return_lse=True)
         elif _meta.on_meta(q, k, v):
             o, lse = _meta.flash_attention(q, k, v, causal=causal,
                                            kv_len=kv_len, return_lse=True)
@@ -258,9 +296,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if _on_cpu(q, k, v):
-            grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                causal=ctx.causal,
-                                                kv_len=ctx.kv_len)
+            grads = _meta.counted(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=ctx.causal, kv_len=ctx.kv_len),
+                _meta.flash_attention_bwd, q, k, v, o, lse, do,
+                causal=ctx.causal, kv_len=ctx.kv_len)
         elif _meta.on_meta(q, k, v):
             grads = _meta.flash_attention_bwd(q, k, v, o, lse, do,
                                               causal=ctx.causal,
@@ -281,8 +320,9 @@ def attention_core(qf, kf, vf, *, causal, bq, bkv, kv_len):
     if _wants_grad(qf, kf, vf):
         return _FlashAttention.apply(qf, kf, vf, causal, bq, bkv, kv_len)
     if _on_cpu(qf, kf, vf):
-        return ref.flash_attention_ref(qf, kf, vf, causal=causal, bq=bq,
-                                       bkv=bkv, kv_len=kv_len)
+        return _meta.counted(lambda: ref.flash_attention_ref(
+            qf, kf, vf, causal=causal, bq=bq, bkv=bkv, kv_len=kv_len),
+            _meta.flash_attention, qf, kf, vf, causal=causal, kv_len=kv_len)
     if _meta.on_meta(qf, kf, vf):
         return _meta.flash_attention(qf, kf, vf, causal=causal,
                                      kv_len=kv_len)
@@ -302,8 +342,9 @@ class _MambaScan(torch.autograd.Function):
     def forward(ctx, da, dbx, c, h0):
         ctx.set_materialize_grads(False)
         if _on_cpu(da, dbx, c, h0):
-            y, h_last, states = ref.mamba_scan_ref(da, dbx, c, h0,
-                                                   return_states=True)
+            y, h_last, states = _meta.counted(lambda: ref.mamba_scan_ref(
+                da, dbx, c, h0, return_states=True), _meta.mamba_scan,
+                da, dbx, c, h0, return_states=True)
         elif _meta.on_meta(da, dbx, c, h0):
             y, h_last, states = _meta.mamba_scan(da, dbx, c, h0,
                                                  return_states=True)
@@ -319,8 +360,9 @@ class _MambaScan(torch.autograd.Function):
         if dy is None:
             dy = da.new_zeros(da.shape[:3])
         if _on_cpu(da, dbx, c, h0):
-            return ref.mamba_scan_bwd_ref(da, dbx, c, h0, dy, dh_last,
-                                          states)
+            return _meta.counted(lambda: ref.mamba_scan_bwd_ref(
+                da, dbx, c, h0, dy, dh_last, states), _meta.mamba_scan_bwd,
+                da, dbx, c, h0, dy, dh_last, states)
         if _meta.on_meta(da, dbx, c, h0):
             return _meta.mamba_scan_bwd(da, dbx, c, h0, dy, dh_last, states)
         return _ms.mamba_scan_bwd(
@@ -334,7 +376,8 @@ def scan_core(da, dbx, c, h0):
     if _wants_grad(da, dbx, c, h0):
         return _MambaScan.apply(da, dbx, c, h0)
     if _on_cpu(da, dbx, c, h0):
-        return ref.mamba_scan_ref(da, dbx, c, h0)
+        return _meta.counted(lambda: ref.mamba_scan_ref(da, dbx, c, h0),
+                             _meta.mamba_scan, da, dbx, c, h0)
     if _meta.on_meta(da, dbx, c, h0):
         return _meta.mamba_scan(da, dbx, c, h0)
     return _ms.mamba_scan(da, dbx, c, h0)
@@ -376,7 +419,9 @@ def _mamba_scan_heads(da, dbx, c, h0):
 
 
 def _mamba_scan(da, dbx, c, h0):
-    if _on_cpu(da, dbx, c, h0):
+    # on the CPU while a tracer listens, the card's route (padded,
+    # contiguous), so that a step run for real counts what its trace does
+    if _on_cpu(da, dbx, c, h0) and not _meta.SINKS:
         return scan_core(da, dbx, c, h0)
     n = da.shape[-1]
     n_pad = next((w for w in _ms.STATE_WIDTHS if w >= n), n)

@@ -9,9 +9,14 @@ axis sizes with no devices behind them: what the dry run and the
 sharding rules read.  :func:`device_mesh` makes the real
 ``torch.distributed`` ``DeviceMesh`` of one, and only when a process
 group of its size exists: ``launch.train`` trains on it.
+:func:`fake_group` brings up a stand-in group of a mesh's ranks in one
+process, for the dry run to trace a partitioned step on ``meta``
+tensors: it moves no data and never stands in for a real group.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -59,3 +64,29 @@ def device_mesh(mesh: AbstractMesh, device_type: str = "cuda"):
                            f"{mesh.axis_sizes} mesh {mesh.size}")
     ranks = torch.arange(mesh.size).reshape(mesh.axis_sizes)
     return DeviceMesh(device_type, ranks, mesh_dim_names=mesh.axis_names)
+
+
+@contextlib.contextmanager
+def fake_group(mesh: AbstractMesh):
+    """A ``DeviceMesh`` of ``mesh``'s axes over a fake process group of
+    ``mesh.size`` ranks, this process rank 0 (PyTorch's ``"fake"``
+    backend: every collective returns at once, moving nothing), for
+    DTensors whose local shards are ``meta`` tensors.  The group is
+    destroyed on exit.  Raises when a process group is already up: this
+    never replaces a real one."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError("fake_group: a process group is already up")
+    dist.init_process_group("fake", rank=0, world_size=mesh.size,
+                            store=FakeStore())
+    try:
+        # the mesh's rank table is a CPU tensor: set-up, which a tracer
+        # of the step does not see
+        with _disable_current_modes():
+            dmesh = device_mesh(mesh, "cpu")
+        yield dmesh
+    finally:
+        dist.destroy_process_group()

@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import (distribute, is_dtensor, leading_spec,
+                                       mesh_sizes, place_tree)
 from repro_torch.models import common, encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import DTYPES, Maker
 from repro_torch.models.mlp import GATED
@@ -70,10 +71,26 @@ class Model(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return self._input(tokens).long()
 
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` the parameters are placed on
+        (``train.trainer.place``), or None off a mesh."""
+        table = self.net.embed.table
+        return table.device_mesh if is_dtensor(table) else None
+
     def _input(self, x) -> torch.Tensor:
         """A batch entry (numpy, a tensor, or a DTensor already placed on
-        the parameters' mesh) as a tensor on the model's device."""
-        return x if is_dtensor(x) else torch.as_tensor(x, device=self.device)
+        the parameters' mesh) as a tensor on the model's device; on a
+        mesh a plain entry (the same on every rank) is placed with its
+        leading dim over the data axes where it divides them."""
+        if is_dtensor(x):
+            return x
+        x = torch.as_tensor(x, device=self.device)
+        mesh = self.mesh
+        if mesh is None:
+            return x
+        return distribute(x, leading_spec(tuple(x.shape), mesh_sizes(mesh)),
+                          mesh)
 
     # ---------------- training ----------------
     def loss(self, batch: dict, remat: bool = True):
@@ -110,24 +127,31 @@ class Model(nn.Module):
     def prefill(self, tokens, prefix_embeds=None, frames=None):
         """tokens [B, S] -> (logits of the last position [B, V], cache);
         ``prefix_embeds`` [B, P, d] (vlm) go before the tokens, and
-        ``frames`` [B, T, d] (encdec) are the encoder's input."""
+        ``frames`` [B, T, d] (encdec) are the encoder's input.  With the
+        parameters on a mesh (``train.trainer.place(..., inference=
+        True)``) the inputs are placed there (:meth:`_input`), the
+        logits are DTensors, and the cache comes at the JAX dry run's
+        cache shardings (``tree_shardings`` of :meth:`cache_axes`)."""
         kw = {}
         if prefix_embeds is not None:
-            kw["prefix_embeds"] = torch.as_tensor(prefix_embeds,
-                                                  device=self.device)
+            kw["prefix_embeds"] = self._input(prefix_embeds)
         if frames is not None:
             if self.cfg.family != "encdec":
                 raise ValueError(f"{self.cfg.name} takes no frames")
-            kw["frames"] = torch.as_tensor(frames, device=self.device)
+            kw["frames"] = self._input(frames)
         logits, cache = self.net(self._tokens(tokens), "prefill", **kw)
+        if self.mesh is not None:
+            cache = place_tree(self.cache_axes(), cache, self.mesh)
         return logits[:, -1], cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, position_idx):
         """tokens [B, 1] at positions ``position_idx`` [B] -> (logits
         [B, V], cache); ``cache`` (of :meth:`cache_spec`'s shapes) is
-        updated in place and returned."""
-        position_idx = torch.as_tensor(position_idx, device=self.device)
+        updated in place and returned.  On a mesh the cache is a tree of
+        DTensors (from :meth:`prefill`, or ``train.trainer.place_cache``)
+        and each rank updates its own shards."""
+        position_idx = self._input(position_idx)
         logits, cache = self.net(self._tokens(tokens), "decode", cache=cache,
                                  position_idx=position_idx)
         return logits[:, -1], cache

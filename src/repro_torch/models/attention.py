@@ -39,19 +39,70 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import (constrain_batch, grad_placed_as,
+                                       is_dtensor, like,
+                                       local_shape_and_offset, mesh_sizes)
 from repro_torch.kernels import ops
 from repro_torch.models.common import Maker, RMSNorm, rope
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` as one product."""
+    """``einsum("bsd,dhk->bshk", x, w)`` as one product.  On a mesh the
+    product's columns are anchored over ``"model"`` only where the heads
+    divide it, so that each rank's columns are whole heads."""
     d = w.shape[0]
-    return (x @ w.to(x.dtype).reshape(d, -1)).unflatten(-1, w.shape[1:])
+    w2 = w.to(x.dtype).reshape(d, -1)
+    if not is_dtensor(w2):
+        return (x @ w2).unflatten(-1, w.shape[1:])
+    sizes = mesh_sizes(w2.device_mesh)
+    cut = "model" in sizes and w.shape[1] % sizes["model"] == 0
+    if not cut:
+        # its gradient kept whole over "model" too, for the view back
+        w2 = grad_placed_as(w2)
+    out = constrain_batch(x @ w2, extra=(None,) * (x.ndim - 2)
+                          + ("model" if cut else None,))
+    return out.unflatten(-1, w.shape[1:])
 
 
 def _head_major(k: torch.Tensor, v: torch.Tensor):
     """[b, s, kv, hd] K and V as [b, kv, s, hd], the cache's layout."""
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+def write_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+             dim: int) -> None:
+    """``cache[b, ..., pos[b], ...] = new[b]`` (``pos`` indexing dim
+    ``dim``), in place, ``new`` cast to the cache's dtype.
+
+    On a mesh (``cache`` a DTensor) each rank writes its own shard: its
+    batch rows, its heads, and along ``dim`` only the positions its
+    shard holds (a ``kvseq``-cut cache), with no collective beyond
+    placing ``new`` and ``pos`` as the shard is placed.  A position
+    outside the shard writes back the value already there."""
+    if not is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        index = (rows,) + (slice(None),) * (dim - 1) + (pos,)
+        cache[index] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, where = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    shape, offset = local_shape_and_offset(cache.shape, mesh, where)
+
+    def drop(d):                   # the placement of a dim of ``new``
+        return Replicate() if d == dim else Shard(d - (d > dim))
+    new = like(new, cache).redistribute(mesh, tuple(
+        drop(p.dim) if p.is_shard() else Replicate() for p in where))
+    pos = like(pos, cache).redistribute(mesh, tuple(
+        p if p.is_shard() and p.dim == 0 else Replicate() for p in where))
+    new, pos = new.to_local().to(local.dtype), pos.to_local() - offset[dim]
+    inside = (pos >= 0) & (pos < shape[dim])
+    rows = torch.arange(shape[0], device=local.device)
+    index = (rows,) + (slice(None),) * (dim - 1) + (
+        pos.clamp(0, shape[dim] - 1),)
+    keep = inside.view(-1, *(1,) * (new.ndim - 1))
+    local[index] = torch.where(keep, new, local[index])
 
 
 class GQA(nn.Module):
@@ -91,10 +142,13 @@ class GQA(nn.Module):
                 rope(k, positions, self.rope_theta), v)
 
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
-        """``einsum("bshk,hkd->bsd", ctx, wo)``."""
+        """``einsum("bshk,hkd->bsd", ctx, wo)``; on a mesh the heads' parts
+        summed and anchored to the batch over the data axes (the merged
+        heads' gradient placed as they are, for the view back)."""
         b, s = ctx.shape[:2]
         wo = self.wo.to(ctx.dtype)
-        return ctx.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+        return constrain_batch(grad_placed_as(ctx.reshape(b, s, -1))
+                               @ wo.reshape(-1, wo.shape[-1]))
 
     def _attend(self, q, k, v, causal: bool):
         """``attend``: q [b, s, h, hd] against k, v [b, s_kv, kv, hd] in
@@ -132,13 +186,15 @@ class GQA(nn.Module):
         [b, kv, S, hd] cache, keys below ``lengths`` ([b]) attended to, at
         scale ``hd**-0.5``, in one ``ops.flash_decode`` over [b * kv, g,
         hd] query groups; returns the output projected, [b, 1, d]."""
-        b, kvh, s_max, hd = cache_k.shape
+        b, kvh, _, hd = cache_k.shape
         g = q.shape[2] // kvh
-        ctx = ops.flash_decode(q.reshape(b * kvh, g, hd),
-                               cache_k.view(b * kvh, s_max, hd),
-                               cache_v.view(b * kvh, s_max, hd),
-                               lengths.to(torch.int32).repeat_interleave(kvh),
-                               scale=hd ** -0.5)
+        if is_dtensor(q) and kvh % mesh_sizes(q.device_mesh).get("model", 1):
+            # the KV heads cannot take "model" (the cache is cut along its
+            # sequence there): the query heads are made whole first, as
+            # the split into groups cannot keep them cut
+            q = constrain_batch(q)
+        ctx = ops.flash_decode(q.reshape(b, kvh, g, hd), cache_k, cache_v,
+                               lengths.to(torch.int32), scale=hd ** -0.5)
         return self._out(ctx.reshape(b, 1, -1, hd))
 
     def decode_attention(self, x, cache_k, cache_v, position, use_rope=True):
@@ -147,10 +203,9 @@ class GQA(nn.Module):
         ``position`` ([b]) in place, and keys at or before it are
         attended to.  Returns (out, (cache_k, cache_v))."""
         q, k_new, v_new = self._project_qkv(x, position[:, None], use_rope)
-        rows = torch.arange(x.shape[0], device=x.device)
         pos = position.long()
-        cache_k[rows, :, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[rows, :, pos] = v_new[:, 0].to(cache_v.dtype)
+        write_at(cache_k, k_new[:, 0], pos, 2)
+        write_at(cache_v, v_new[:, 0], pos, 2)
         return (self._decode_attend(q, cache_k, cache_v, pos + 1),
                 (cache_k, cache_v))
 
@@ -191,10 +246,13 @@ class MLA(nn.Module):
         return self.kv_norm(kv[..., :self.kvr]), k_rope[..., 0, :]
 
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
-        """``einsum("bshk,hkd->bsd", ctx, wo)``."""
+        """``einsum("bshk,hkd->bsd", ctx, wo)``; on a mesh the heads' parts
+        summed and anchored to the batch over the data axes (the merged
+        heads' gradient placed as they are, for the view back)."""
         b, s = ctx.shape[:2]
         wo = self.wo.to(ctx.dtype)
-        return ctx.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+        return constrain_batch(grad_placed_as(ctx.reshape(b, s, -1))
+                               @ wo.reshape(-1, wo.shape[-1]))
 
     def self_attention(self, x, positions):
         """``mla_self_attention``, causal, the prefill path: returns (out,
@@ -217,11 +275,9 @@ class MLA(nn.Module):
         (cache_c, cache_rope))."""
         q_nope, q_rope = self._q(x, position[:, None])
         c_new, rope_new = self._latent(x, position[:, None])
-        b = x.shape[0]
-        rows = torch.arange(b, device=x.device)
         pos = position.long()
-        cache_c[rows, pos] = c_new[:, 0].to(cache_c.dtype)
-        cache_rope[rows, pos] = rope_new[:, 0].to(cache_rope.dtype)
+        write_at(cache_c, c_new[:, 0], pos, 1)
+        write_at(cache_rope, rope_new[:, 0], pos, 1)
         # q_lat[b, h, r] = q_nope . wk_b^T, the heads as query rows
         q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0],
                              self.wk_b.to(x.dtype))

@@ -26,7 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.dist.sharding import (constrain_rows_model, is_dtensor,
-                                       like, row_local, shard_like)
+                                       leading_spec, like,
+                                       local_shape_and_offset, mesh_sizes,
+                                       placements, row_local, shard_like)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -196,17 +198,51 @@ def _gather_rows(tokens, table):
     return table[tokens]
 
 
+def _vocab_parallel(tokens, table):
+    """The rows of ``tokens`` from a DTensor ``table`` whose rows (the
+    vocabulary) may be cut over ``"model"``: each rank looks up its own
+    batch rows' tokens in its own rows, zeros where another rank holds
+    the row, and the parts are summed over ``"model"`` (one of them
+    nonzero, so the sum is exact), as the JAX package gathers from a
+    table cut there.  No gradient flows: serving only."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tokens = like(tokens, table)
+    rows = placements(leading_spec(tuple(tokens.shape), mesh_sizes(mesh)),
+                      tokens.ndim, mesh)
+    out = tuple(Partial() if p.is_shard(0) else r
+                for p, r in zip(table.placements, rows))
+    first = local_shape_and_offset(table.shape, mesh, table.placements)[1][0]
+
+    def lookup(tok, local):
+        idx = tok.long() - first
+        inside = (idx >= 0) & (idx < local.shape[0])
+        got = local[idx.clamp(0, local.shape[0] - 1)]
+        return torch.where(inside[..., None], got, got.new_zeros(()))
+    got = local_map(lookup, out_placements=list(out),
+                    in_placements=(rows, table.placements),
+                    device_mesh=mesh, redistribute_inputs=True)(tokens, table)
+    return got.redistribute(mesh, rows)
+
+
 class Embed(nn.Module):
     def __init__(self, mk: Maker, vocab: int, dim: int):
         super().__init__()
         self.table = mk.param((vocab, dim), ("vocab", "embed"), scale=1.0)
 
     def forward(self, tokens):
-        """The rows of ``tokens``; on a mesh each rank gathers its own
-        batch rows from the whole table (``dist.sharding.row_local``),
-        where the JAX package gathers from a table cut over ``"model"``."""
-        return row_local(_gather_rows, tokens, self.table, n_out=1,
-                         whole=(1,))
+        """The rows of ``tokens``.  On a mesh, when no gradient is wanted
+        (serving), each rank looks its batch rows up in its own part of
+        the table and the parts are summed (:func:`_vocab_parallel`);
+        in training each rank gathers its own batch rows from the whole
+        table (``dist.sharding.row_local``)."""
+        table = self.table
+        if is_dtensor(table) and not (torch.is_grad_enabled()
+                                      and table.requires_grad):
+            return _vocab_parallel(tokens, table)
+        return row_local(_gather_rows, tokens, table, n_out=1, whole=(1,))
 
     def unembed(self, x):
         """Tied output head: ``x @ table^T``."""

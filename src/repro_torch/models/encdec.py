@@ -31,6 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Embed, LayerNorm, Maker, like,
                                        sinusoidal_at, sinusoidal_positions,
@@ -50,6 +51,7 @@ class EncoderLayer(nn.Module):
         self.mlp = MLP(mk, cfg.d_model, cfg.d_ff, cfg.mlp_act)
 
     def forward(self, x):
+        x = constrain_batch(x)              # the JAX package's anchor
         a, _ = self.attn.self_attention(self.ln_attn(x), None, causal=False,
                                         use_rope=False)
         x = x + a
@@ -67,6 +69,7 @@ class DecoderLayer(EncoderLayer):
 
     def forward(self, x, mode, enc_out=None, cache=None, position_idx=None):
         """Returns (x, {"self": (k, v), "cross": (k, v)})."""
+        x = constrain_batch(x)              # the JAX package's anchor
         h = self.ln_attn(x)
         if mode == "decode":
             a, self_kv = self.attn.decode_attention(

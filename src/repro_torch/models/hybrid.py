@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (Embed, Maker, RMSNorm, positions_of,
@@ -41,6 +42,7 @@ class MambaBlock(nn.Module):
         self.mamba = ssm.Mamba2(mk, cfg)
 
     def forward(self, x, state=None):
+        x = constrain_batch(x)              # the JAX package's anchor
         y, new_state = self.mamba(self.ln(x), state)
         return x + y, new_state
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from torch import nn
 
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.models.common import Maker, activation
 
 GATED = {"swiglu": "silu", "geglu": "gelu"}
@@ -24,9 +25,12 @@ class MLP(nn.Module):
         self.w_down = mk.param((d_ff, d_model), ("ffn", "embed"))
 
     def forward(self, x):
+        """On a mesh the output (each rank's ffn columns' part) is summed
+        and anchored to its batch over the data axes, so that the stream
+        it joins stays whole over ``"model"``."""
         if self.kind in GATED:
             act = activation(GATED[self.kind])
             h = act(x @ self.w_gate.to(x.dtype)) * (x @ self.w_up.to(x.dtype))
         else:
             h = activation(self.kind)(x @ self.w_up.to(x.dtype))
-        return h @ self.w_down.to(x.dtype)
+        return constrain_batch(h @ self.w_down.to(x.dtype))

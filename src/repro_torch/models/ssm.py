@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.dist.sharding import constrain_batch
+from repro_torch.dist.sharding import constrain_batch, grad_placed_as
 from repro_torch.models.common import Maker, RMSNorm, zeros
 
 
@@ -88,7 +88,7 @@ class Mamba(nn.Module):
         # the product sums over ssm_inner, which a mesh cuts over "model":
         # anchored whole over "model" here (one reduction), so no later
         # product meets it partial
-        proj = constrain_batch(xs @ self.w_x.to(dtype))
+        proj = constrain_batch(xs @ self.w_x.to(dtype), grad=False)
         # jax.nn.softplus has no threshold; torch's returns x past 20,
         # where log1p(exp(-x)) < 2.1e-9: under 1e-8 from the JAX package's
         dt = _by_channels(F.softplus(proj[..., :r] @ self.w_dt.to(dtype)
@@ -104,21 +104,23 @@ class Mamba(nn.Module):
         y, h_last = ops.mamba_scan(da, dbx, c_t.float(), h0)
         y = y.to(dtype) + xs * self.d_skip.to(dtype)
         y = y * F.silu(z)
-        return y @ self.w_out.to(dtype), {"conv": new_conv, "ssm": h_last}
+        # the channels' parts summed and anchored, as the MLP's output
+        return constrain_batch(y @ self.w_out.to(dtype)), {
+            "conv": new_conv, "ssm": h_last}
 
 
 def _by_channels(t: torch.Tensor) -> torch.Tensor:
     """A [b, l, di] tensor anchored with its batch over the data axes and
     its channels over "model", as the scan's rule takes da and dbx (the
     identity off a mesh)."""
-    return constrain_batch(t, extra=("", "model"))
+    return constrain_batch(t, extra=("", "model"), grad=False)
 
 
 def _by_heads(t: torch.Tensor) -> torch.Tensor:
     """A head-major [b, h, ...] tensor, contiguous, anchored with its
     batch over the data axes and its heads over "model" (off a mesh only
     made contiguous)."""
-    return constrain_batch(t, extra=("model",)).contiguous()
+    return constrain_batch(t, extra=("model",), grad=False).contiguous()
 
 
 class Mamba2(nn.Module):
@@ -151,18 +153,21 @@ class Mamba2(nn.Module):
         # anchored whole over "model" on a mesh: one gather, where each of
         # the slices below would gather it again (they do not fall on the
         # shards' edges)
-        zxbcdt = constrain_batch(x @ self.w_in.to(dtype))
+        zxbcdt = constrain_batch(x @ self.w_in.to(dtype), grad=False)
         z, xbc, dt_raw = (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * g * n],
                           zxbcdt[..., -h:])
         xbc, new_conv = _causal_conv(xbc, self.conv_w, self.conv_b,
                                      state["conv"] if state else None)
-        xbc = constrain_batch(F.silu(xbc))    # whole again: sliced below
+        # whole again: sliced below
+        xbc = constrain_batch(F.silu(xbc), grad=False)
         # head-major [b, h, l, ...]; B and C repeated from g groups to h
         # heads in jnp.repeat's order.  On a mesh dt, B and C are cut over
         # "model" by their heads here, so that da and dbx are born cut as
         # the scan's rule takes them (no rank forms another's heads)
-        xs = xbc[..., :di].unflatten(-1, (h, p)).transpose(1, 2).float(
-        ).contiguous()
+        # (the heads' gradient made contiguous on each rank before the
+        # view back: a transposed shard's cannot be viewed)
+        xs = grad_placed_as(xbc[..., :di].unflatten(-1, (h, p)),
+                            placed=False).transpose(1, 2).float().contiguous()
         b_t, c_t = (_by_heads(xbc[..., di + i * g * n:di + (i + 1) * g * n]
                               .unflatten(-1, (g, n))
                               .repeat_interleave(h // g, 2).transpose(1, 2)
@@ -179,4 +184,6 @@ class Mamba2(nn.Module):
         y = y + xs * self.d_skip.float()[:, None, None]
         y = y.transpose(1, 2).reshape(b, l, di).to(dtype)
         y = self.norm(y * F.silu(z))
-        return y @ self.w_out.to(dtype), {"conv": new_conv, "ssm": h_last}
+        # the channels' parts summed and anchored, as the MLP's output
+        return constrain_batch(y @ self.w_out.to(dtype)), {
+            "conv": new_conv, "ssm": h_last}

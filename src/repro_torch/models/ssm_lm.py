@@ -14,6 +14,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.models import ssm
 from repro_torch.models.common import Embed, Maker, RMSNorm, zeros
 
@@ -41,6 +42,7 @@ class SsmBlock(nn.Module):
         self.mamba = ssm.Mamba(mk, cfg)
 
     def forward(self, x, state=None):
+        x = constrain_batch(x)              # the JAX package's anchor
         y, new_state = self.mamba(self.ln(x), state)
         return x + y, new_state
 

@@ -26,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.models.common import (Dense, Embed, Maker, RMSNorm,
                                        positions_of, zeros)
 from repro_torch.models.mlp import MLP
@@ -56,7 +57,10 @@ class DecoderLayer(nn.Module):
     def forward(self, x, positions, mode: str, cache=None,
                 position_idx=None):
         """mode 'train' | 'prefill' | 'decode'; returns (x, layer cache,
-        the MoE's aux loss, fp32; None for an MLP layer)."""
+        the MoE's aux loss, fp32; None for an MLP layer).  On a mesh the
+        stream is anchored to its batch over the data axes first, as the
+        JAX package anchors each layer's input."""
+        x = constrain_batch(x)
         h = self.ln_attn(x)
         if mode == "decode":
             a, new_cache = self.attn.decode_attention(

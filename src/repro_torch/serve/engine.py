@@ -19,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import is_dtensor, place_tree
 from repro_torch.models.api import Model
 from repro_torch.models.common import resolve_device
 
@@ -40,7 +41,9 @@ def _tree_map(fn, tree, spec):
 
 def expand_cache(model: Model, cache, batch: int, max_len: int):
     """Pad a prefill cache (seq == prompt length) out to ``max_len``
-    slots, in :meth:`Model.cache_spec`'s shapes and dtypes."""
+    slots, in :meth:`Model.cache_spec`'s shapes and dtypes.  A cache of
+    DTensors (a model on a mesh) is padded on each rank's shard, the
+    grown dims whole there, then placed at the cache's shardings."""
 
     def pad(c, s):
         if c.shape == s.shape:
@@ -48,11 +51,33 @@ def expand_cache(model: Model, cache, batch: int, max_len: int):
         if any(a > b for a, b in zip(c.shape, s.shape)):
             raise ValueError(f"a prefill cache of {tuple(c.shape)} does not "
                              f"fit {tuple(s.shape)}")
+        if is_dtensor(c):
+            return _pad_shards(c, s)
         out = torch.zeros(s.shape, dtype=s.dtype, device=c.device)
         out[tuple(slice(0, n) for n in c.shape)] = c
         return out
 
-    return _tree_map(pad, cache, model.cache_spec(batch, max_len))
+    out = _tree_map(pad, cache, model.cache_spec(batch, max_len))
+    if model.mesh is None:
+        return out
+    return place_tree(model.cache_axes(), out, model.mesh)
+
+
+def _pad_shards(c, s):
+    """A DTensor ``c`` zero-padded to ``s``'s shape: the dims that grow
+    made whole on each rank (a gather only where one was cut), each
+    rank's shard padded."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    grow = {d for d in range(c.ndim) if c.shape[d] != s.shape[d]}
+    where = tuple(Replicate() if p.is_shard() and p.dim in grow else p
+                  for p in c.placements)
+    local = c.redistribute(c.device_mesh, where).to_local()
+    out = local.new_zeros([s.shape[d] if d in grow else n
+                           for d, n in enumerate(local.shape)],
+                          dtype=s.dtype)
+    out[tuple(slice(0, n) for n in local.shape)] = local
+    return DTensor.from_local(out, c.device_mesh, where, run_check=False)
 
 
 class Engine:

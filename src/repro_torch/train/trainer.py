@@ -48,24 +48,28 @@ def _microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: cut(v, i) for k, v in batch.items()} for i in range(n)]
 
 
-def mesh_of(model: Model):
-    """The ``DeviceMesh`` ``model``'s parameters are placed on
-    (:func:`place`), or None for a model off a mesh."""
-    table = model.net.embed.table
-    return table.device_mesh if shlib.is_dtensor(table) else None
-
-
 def place_batch(batch: dict, mesh) -> dict:
     """``batch`` (numpy arrays or tensors, the same on every rank) as
     DTensors on ``mesh``, each leading dim over the data axes where it
     divides them (``dist.sharding.batch_sharding``), on the mesh's
-    device; each rank keeps its own rows."""
+    device (``meta`` entries, the dry run's, stay ``meta``); each rank
+    keeps its own rows."""
     device = torch.device(mesh.device_type, torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device("cpu")
-    tensors = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    tensors = {k: v if isinstance(v, torch.Tensor) and v.is_meta
+               else torch.as_tensor(v, device=device)
+               for k, v in batch.items()}
     specs = shlib.batch_sharding(mesh, tensors)
     return {k: shlib.distribute(t, specs[k], mesh)
             for k, t in tensors.items()}
+
+
+def place_cache(model: Model, cache, mesh):
+    """A decode cache (``Model.cache_spec``'s structure; whole tensors,
+    the same on every rank, or DTensors) on ``mesh`` at
+    ``tree_shardings(model.cache_axes(), cache, mesh)``, the JAX dry
+    run's cache shardings: each rank keeps its own shard."""
+    return shlib.place_tree(model.cache_axes(), cache, mesh)
 
 
 def _plain(t: torch.Tensor) -> torch.Tensor:
@@ -108,7 +112,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
     def train_step(opt_state: dict, batch: dict) -> dict:
         params = dict(model.net.named_parameters())
-        mesh = mesh_of(model)
+        mesh = model.mesh
         if tcfg.grad_accum > 1:
             gsum, lsum = None, None
             for mb in _microbatches(batch, tcfg.grad_accum):
@@ -159,7 +163,8 @@ def shardings_for(model: Model, mesh, batch_spec):
 
 
 
-def place(model: Model, mesh) -> None:
+def place(model: Model, mesh, inference: bool = False,
+          values: dict | None = None) -> None:
     """Put ``model``'s parameters on ``mesh``, a named ``DeviceMesh``, by
     :func:`shardings_for`'s specs, in place: each module's parameter
     becomes a DTensor parameter at ``placements`` of its ``spec_for``
@@ -169,12 +174,24 @@ def place(model: Model, mesh) -> None:
     master weights and moments their placements (the step count stays an
     int, the same on every rank), and the step places each batch
     (:func:`place_batch`): the JAX launcher's ``device_put`` of all
-    three."""
+    three.  With ``inference`` the specs are the serving ones
+    (``dist.sharding.INFERENCE_RULES``: no FSDP, every ``embed`` dim
+    whole), the JAX dry run's ``tree_shardings(..., inference=True)``;
+    ``Model.prefill`` and ``Model.decode_step`` then serve on the mesh,
+    the cache at :func:`place_cache`'s placements.  ``values`` ({name:
+    whole tensor}, ``named_parameters``' names) replaces the parameters'
+    own values, so that a model built on ``meta`` is placed from
+    weights held elsewhere (another process's, shared by CUDA IPC): each
+    rank copies its own shards out of them."""
+    rules = shlib.INFERENCE_RULES if inference else shlib.RULES
     with torch.no_grad():
-        for mod in model.net.modules():
+        for prefix, mod in model.net.named_modules():
             for name, p in list(mod.named_parameters(recurse=False)):
-                spec = shlib.spec_for(p.logical_axes, tuple(p.shape), mesh)
-                dp = torch.nn.Parameter(shlib.distribute(p, spec, mesh),
+                spec = shlib.spec_for(p.logical_axes, tuple(p.shape), mesh,
+                                      rules)
+                whole = p if values is None else values[
+                    f"{prefix}.{name}" if prefix else name]
+                dp = torch.nn.Parameter(shlib.distribute(whole, spec, mesh),
                                         requires_grad=p.requires_grad)
                 dp.logical_axes = p.logical_axes
                 setattr(mod, name, dp)
