@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; no phase catches its own):
      prints its plan (clusters x ranks, placement, shared memory);
      flash_decode runs its case and the serves' shapes beside an empty
      kernel's time (``csrc/empty.cu``, the launch floor), its bf16 route
-     at the model zoo's decode shape beside SDPA in bf16, and its fp32
-     route bit-equal to the kernel before the bf16 route (recorded output
-     digests on exact inputs);
+     at the model zoo's decode shape beside SDPA in bf16 (each bf16 row
+     with its cut and grid logged and gated first on a request's rows
+     being torch.equal alone and in the batch, and across two calls),
+     and its fp32 route bit-equal to the kernel before the bf16 route
+     (recorded output digests on exact inputs);
      flash_attention holds fp32 to 1e-4 of its plain version (three TF32
      products on the tensor cores, bound at 495/3 TFLOP/s), logs a bf16
      run at the same shape and times its bf16 route at the model zoo's
@@ -98,7 +100,10 @@ Phases (any failure exits non-zero; no phase catches its own):
      experts from the kernel run, every layer's contribution held too,
      and the share of routes the plain versions would choose alike on
      their own logged), the decode step beside the bound of the bytes it
-     must move (``decode_step_bytes``); then every model at depth 2
+     must move (``decode_step_bytes``), the peak memory and the
+     device's idle share over 4 traced decode steps, with no dry run
+     beside (a stage line counts their processes); then every model at
+     depth 2
      (zamba2 at 7: one application and a tail block) in fp32 (the MoE
      models at capacity factor experts / top-k, which drops nothing):
      decode after a prefill equal to the longer prefill (rtol and atol
@@ -135,8 +140,8 @@ Phases (any failure exits non-zero; no phase catches its own):
      against the same run resumed from its checkpoint of 20, every
      parameter and optimizer tensor torch.equal; then ``launch.dryrun
      --all`` on the 16 x 16 and the 2 x 16 x 16 meshes (started after
-     phase 1, each in a process of its own beside the card's phases:
-     it needs no card): each exits 0 with 32 cells OK and 8 SKIP, each
+     phase 11, each in a process of its own beside phases 12, 14 and
+     15: it needs no card; read at the script's end): each exits 0 with 32 cells OK and 8 SKIP, each
      step traced whole and partitioned over a fake process group of
      256 or 512 ranks, on ``meta``, in a process that never initialised
      CUDA and left no group behind, each cell's numbers logged
@@ -614,38 +619,80 @@ def check_flash_decode(timer, gen) -> dict:
 DECODE_BF16_CASE = (64, 1, 49, 256, 47)
 
 
-def check_flash_decode_bf16(timer, gen) -> dict:
-    """The bf16 route against its plain version (p rounded to bf16 before
-    P V, output in bf16) at ``DECODE_BF16_CASE``, timed beside SDPA on the
-    same bf16 inputs (every route, the fastest kept) and its bound: the
-    kernels JSON row of the route."""
-    b, sq, skv, d, length = DECODE_BF16_CASE
-    scale = d ** -0.5
-    # q at 1/scale: scores of std ~8, a peaked softmax whose output RMS
-    # is far above check()'s atol, as at the fp32 cases
+def decode_bf16_case(name: str) -> tuple:
+    """(B, sq, skv, d, dv, length, scale, v's scale) of a bf16 row."""
+    if name == "flash_decode_bf16":
+        b, sq, skv, d, length = DECODE_BF16_CASE
+        return b, sq, skv, d, d, length, d ** -0.5, 1.0
+    if name == "flash_decode_mla":
+        # v at 2x: an output RMS ~2, over 10x check()'s atol at k = d
+        return (*MLA_DECODE_CASE, 192 ** -0.5, 2.0)
+    b, sq, skv, d = CROSS_DECODE_CASE
+    return b, sq, skv, d, d, skv, d ** -0.5, 1.0
+
+
+def decode_bf16_inputs(name: str, gen) -> tuple:
+    """(q, k, v, lengths, scale) of a bf16 row, drawn on the card: q at
+    1/scale (scores of std 4-8, a peaked softmax whose output RMS is far
+    above check()'s atol, as at the fp32 cases), k at 0.5."""
+    b, sq, skv, d, dv, length, scale, v_scale = decode_bf16_case(name)
     q = (torch.randn(b, sq, d, device="cuda", generator=gen) / scale
          ).to(torch.bfloat16)
     k = (torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
          ).to(torch.bfloat16)
-    v = torch.randn(b, skv, d, device="cuda", generator=gen
-                    ).to(torch.bfloat16)
+    v = (torch.randn(b, skv, dv, device="cuda", generator=gen) * v_scale
+         ).to(torch.bfloat16)
     lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    return q, k, v, lens, scale
+
+
+#: check()'s rtol for each bf16 row: the cross row one bf16 ulp more, as
+#: flash_attention_enc (1500 keys in a sum)
+DECODE_BF16_RTOL = {"flash_decode_bf16": RTOL, "flash_decode_mla": RTOL,
+                    "flash_decode_cross": RTOL + 2 ** -7}
+
+
+def check_flash_decode_bf16(name: str, timer, gen) -> dict:
+    """The bf16 route at one of its rows (``decode_bf16_case``: the zoo's
+    GQA decode, MLA's absorbed decode with d 576 and dv 512 and 128 query
+    rows, whisper's cross attention over 1500 frames) against its plain
+    version (p rounded to bf16 before P V, output in bf16); gated, before
+    any timing, on the last request's rows being the same bits launched
+    alone as in the batch, and on the built kernel's cut (``decode_plan``)
+    being the one the wrapper reckons; then timed beside SDPA on the same
+    bf16 inputs (every route, the fastest kept) and its bound: the
+    kernels JSON row ``name``."""
+    b, sq, skv, d, dv, length, _, _ = decode_bf16_case(name)
+    q, k, v, lens, scale = decode_bf16_inputs(name, gen)
     got = fa.flash_decode(q, k, v, lens, scale=scale)
     want = ref.flash_decode_ref(q, k, v, lens, scale=scale)
     assert got.dtype == want.dtype == torch.bfloat16
-    name = f"flash_decode bf16 {(b, sq, skv, d)}"
-    err = check(name, got.float(), want.float(), d)
+    label = f"{name} {(b, sq, skv, d, dv)}"
+    err = check(label, got.float(), want.float(), d, DECODE_BF16_RTOL[name])
+    alone = fa.flash_decode(q[-1:], k[-1:], v[-1:], lens[-1:], scale=scale)
+    assert torch.equal(alone[0], got[-1]), f"{label}: a row depends on B"
+    assert torch.equal(fa.flash_decode(q, k, v, lens, scale=scale), got)
+    plan = fa.decode_plan_on_card(skv, d, dv, sq)
+    assert plan == fa.decode_plan(skv, d, dv, sq), plan
+    grid = (plan["n_split"], -(-sq // 16) * plan["strips"], b)
+    log(f"K3 {label}: {plan['n_split']} range(s) of {plan['split']} keys "
+        f"(a cluster of {plan['n_split']}), chunks of {plan['chunk']}, "
+        f"{plan['stages']} in flight, {plan['smem']} B of shared memory a "
+        f"block, grid {grid} = {grid[0] * grid[1] * grid[2]} blocks; the "
+        f"last request's rows torch.equal alone and in the batch of {b}, "
+        f"and across two calls")
+    masked = length < skv
     mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])
     ms_ = timer(lambda: fa.flash_decode(q, k, v, lens, scale=scale))
     plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens, scale=scale))
-    lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
-                       k[:, None], v[:, None],
-                       attn_mask=mask[:, None, None, :], scale=scale)
+    kw = {"attn_mask": mask[:, None, None, :]} if masked else {}
+    lib = sdpa_library(timer, label, want, lambda o: o[:, 0], q[:, None],
+                       k[:, None], v[:, None], scale=scale, **kw)
     used = b * length                # the KV rows these lengths need
-    nbytes = 2.0 * (2 * b * sq * d + 2 * used * d) + 4 * b
-    flops = 4.0 * sq * used * d
+    nbytes = 2.0 * (b * sq * d + used * (d + dv) + b * sq * dv) + 4 * b
+    flops = 2.0 * sq * used * (d + dv)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
-    log(f"K3 {name}: lengths {length} | max_err {err:.3g} | ms "
+    log(f"K3 {label}: lengths {length} | max_err {err:.3g} | ms "
         f"{spread(ms_)} plain {plain['ms']:.4f} sdpa {lib['ms']:.4f} "
         f"({lib['route']}) bound {b_ms:.6f} ({b_by})")
     return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
@@ -995,77 +1042,10 @@ def check_flash_attention_mla(timer, gen) -> dict:
     return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
 
 
-def check_flash_decode_mla(timer, gen) -> dict:
-    """The bf16 route at ``MLA_DECODE_CASE`` (d 576 and dv 512: shared
-    memory past 48 KB; 128 query rows: 8 row groups) against its plain
-    version, timed beside SDPA in bf16 and its bound: the kernels JSON row
-    ``flash_decode_mla``."""
-    b, sq, skv, d, dv, length = MLA_DECODE_CASE
-    scale = 192 ** -0.5
-    q = (torch.randn(b, sq, d, device="cuda", generator=gen) / scale
-         ).to(torch.bfloat16)
-    k = (torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
-         ).to(torch.bfloat16)
-    # v at 2x: an output RMS ~2, over 10x check()'s atol at k = d
-    v = (torch.randn(b, skv, dv, device="cuda", generator=gen) * 2.0
-         ).to(torch.bfloat16)
-    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
-    got = fa.flash_decode(q, k, v, lens, scale=scale)
-    want = ref.flash_decode_ref(q, k, v, lens, scale=scale)
-    name = f"flash_decode bf16 MLA {MLA_DECODE_CASE[:5]}"
-    err = check(name, got.float(), want.float(), d)
-    mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])
-    ms_ = timer(lambda: fa.flash_decode(q, k, v, lens, scale=scale))
-    plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens, scale=scale))
-    lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
-                       k[:, None], v[:, None],
-                       attn_mask=mask[:, None, None, :], scale=scale)
-    used = b * length                # the KV rows these lengths need
-    nbytes = 2.0 * (b * sq * d + used * (d + dv) + b * sq * dv) + 4 * b
-    flops = 2.0 * sq * used * (d + dv)
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
-    log(f"K3 {name}: lengths {length} | max_err {err:.3g} | ms "
-        f"{spread(ms_)} plain {plain['ms']:.4f} sdpa {lib['ms']:.4f} "
-        f"({lib['route']}) bound {b_ms:.6f} ({b_by})")
-    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
-
-
 #: whisper-base's cross attention at a decode step: a request's 8 heads
 #: of 64, each one query against its 1500 encoder frames (lengths 1500),
 #: scale 64**-0.5: q [32, 1, 64], K and V [32, 1500, 64]
 CROSS_DECODE_CASE = (32, 1, 1500, 64)
-
-
-def check_flash_decode_cross(timer, gen) -> dict:
-    """The bf16 route at ``CROSS_DECODE_CASE`` against its plain version,
-    timed beside SDPA in bf16 and its bound: the kernels JSON row
-    ``flash_decode_cross``."""
-    b, sq, skv, d = CROSS_DECODE_CASE
-    scale = d ** -0.5
-    # scores of std 4 over 1500 keys: a peaked softmax, output RMS ~0.5
-    q = (torch.randn(b, sq, d, device="cuda", generator=gen) / scale
-         ).to(torch.bfloat16)
-    k = (torch.randn(b, skv, d, device="cuda", generator=gen) * 0.5
-         ).to(torch.bfloat16)
-    v = torch.randn(b, skv, d, device="cuda", generator=gen
-                    ).to(torch.bfloat16)
-    lens = torch.full((b,), skv, dtype=torch.int32, device="cuda")
-    got = fa.flash_decode(q, k, v, lens, scale=scale)
-    want = ref.flash_decode_ref(q, k, v, lens, scale=scale)
-    name = f"flash_decode bf16 cross {CROSS_DECODE_CASE}"
-    # one bf16 ulp more than check()'s tolerance, as flash_attention_enc
-    err = check(name, got.float(), want.float(), d, RTOL + 2 ** -7)
-    ms_ = timer(lambda: fa.flash_decode(q, k, v, lens, scale=scale))
-    plain = timer(lambda: ref.flash_decode_ref(q, k, v, lens, scale=scale))
-    lib = sdpa_library(timer, name, want, lambda o: o[:, 0], q[:, None],
-                       k[:, None], v[:, None], scale=scale)
-    nbytes = 2.0 * (2 * b * sq * d + 2 * b * skv * d) + 4 * b
-    flops = 4.0 * b * sq * skv * d
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
-    log(f"K3 {name}: lengths {skv} | max_err {err:.3g} | ms {spread(ms_)} "
-        f"plain {plain['ms']:.4f} sdpa {lib['ms']:.4f} ({lib['route']}) "
-        f"bound {b_ms:.6f} ({b_by})")
-    return row_stats(ms_, plain, lib, nbytes, flops, err, PEAK_BF16)
 
 
 #: zamba2-1.2b's Mamba-2 scan as ``models.ssm.Mamba2`` calls it for one
@@ -2397,8 +2377,9 @@ def zoo_serve(arch: str, name_limit: str, device="cuda",
     the last decode step held against their plain versions (in the
     second serve), the logits held against the plain versions'
     (``zoo_logits_gate``), the decode step beside the bound of the bytes
-    it must move (``decode_step_bytes``).  Returns the first serve's
-    launches."""
+    it must move (``decode_step_bytes``), the peak device memory, then
+    the device's idle share over a few traced steps (``zoo_busy``).
+    Returns the first serve's launches."""
     args = launch_serve.parse(["--arch", arch, *ZOO_ARGV, "--device",
                                str(device)])
     full = get_config(arch)
@@ -2467,9 +2448,38 @@ def zoo_serve(arch: str, name_limit: str, device="cuda",
         f" GiB allocated, {torch.cuda.max_memory_allocated() / gib:.2f} GiB "
         f"peak; card {name_limit}")
     log(f"zoo {arch}: tokens[:, :12] {tokens[:, :12].tolist()}")
+    traced_ms, busy_ms = zoo_busy(engine, prompts, kw)
+    log(f"zoo {arch}: {ZOO_TRACED_STEPS} decode steps traced by "
+        f"torch.profiler: {traced_ms:.3f} ms a step, the card busy "
+        f"{busy_ms:.3f} ms of it; device idle share "
+        f"{1 - busy_ms / traced_ms:.3f} of the traced step, "
+        f"{max(0.0, 1 - busy_ms / step_ms):.3f} of the untraced "
+        f"{step_ms:.3f} ms")
     del engine, model
     torch.cuda.empty_cache()
     return launched
+
+
+#: decode steps of a zoo model traced for its device idle share
+ZOO_TRACED_STEPS = 4
+
+
+def zoo_busy(engine, prompts, kw) -> tuple[float, float]:
+    """(wall ms, the card's busy ms) a decode step over ZOO_TRACED_STEPS
+    greedy steps after a prefill, traced by ``torch.profiler``
+    (``profile_zoo.py``'s steps; the profiler's host cost lengthens the
+    traced step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_zoo import decode_steps, start
+    dev = engine.model.device
+    state = start(engine, torch.as_tensor(prompts, device=dev),
+                  {k: torch.as_tensor(v, device=dev) for k, v in kw.items()})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = decode_steps(engine, state, ZOO_TRACED_STEPS)[0]
+    n = ZOO_TRACED_STEPS
+    return wall / n * 1e3, busy_seconds(prof) / n * 1e3
 
 
 #: the largest relative L2 distance (a row's) between the zoo's logits on
@@ -3140,10 +3150,21 @@ def device_idle_share(run, step: int) -> tuple[float, float]:
         run.step_fn(run.opt_state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=20)
+    log("train: a step's operators by device time")
+    for line in table.splitlines():
+        log("  " + line)
+    return wall, 1.0 - busy_seconds(prof) / wall
+
+
+def busy_seconds(prof) -> float:
+    """Seconds in which some kernel ran on the card in a ``torch.profiler``
+    trace: the union of the kernels' spans."""
     cuda = torch.autograd.DeviceType.CUDA
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == cuda)
-    busy, end = 0.0, None            # the union of the kernels' spans
+    busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
             busy += b - a
@@ -3151,12 +3172,7 @@ def device_idle_share(run, step: int) -> tuple[float, float]:
         elif b > end:
             busy += b - end
             end = b
-    table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=20)
-    log("train: a step's operators by device time")
-    for line in table.splitlines():
-        log("  " + line)
-    return wall, 1.0 - busy * 1e-6 / wall
+    return busy * 1e-6
 
 
 def training_phase(device="cuda") -> tuple[dict, dict]:
@@ -3994,10 +4010,11 @@ sys.exit(rc)
 
 def start_dryruns(tmp: str) -> dict:
     """``launch.dryrun --all`` on the 16 x 16 and the 2 x 16 x 16 meshes,
-    each in a process of its own started now, beside the card's phases:
+    each in a process of its own started now (after phase 11, so the
+    host-bound phases 10 and 11 run alone), beside phases 12, 14 and 15:
     the dry run needs no card (its traces run on ``meta`` over a fake
-    process group) and takes minutes of one CPU core.  Phase 12 reads
-    them (:func:`dryrun_phase`)."""
+    process group) and takes minutes of one CPU core.  Phase 12's last
+    part reads them at the end (:func:`dryrun_phase`)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
         if p), CUDA_VISIBLE_DEVICES="")
@@ -4039,7 +4056,7 @@ def dryrun_phase(runs: dict) -> None:
         mesh = records[0]["mesh"] if records else name
         log(f"dryrun {name}: {ok} OK, {skip} SKIP, {fail} FAIL / "
             f"{len(records)} cells, exit {rc}, {wall:.1f} s in a process "
-            f"of its own beside phases 2-11 (H100 constants: "
+            f"of its own beside phases 12, 14 and 15 (H100 constants: "
             f"{dryrun.PEAK_FLOPS:.3g} flop/s bf16, {dryrun.HBM_BW:.3g} B/s,"
             f" links {records[0].get('link_bw') if records else None} B/s)")
         assert rc == 0, (name, rc, open(logf.name).read()[-3000:])
@@ -4078,17 +4095,15 @@ def dryrun_phase(runs: dict) -> None:
                 f"{r['aten_dot_flops'] / want:.6f}")
 
 
-def examples_phase(dryruns: dict) -> dict:
-    """Phase 12; returns each example's launches."""
+def examples_phase() -> dict:
+    """Phase 12's examples; returns each example's launches."""
     stage("phase 12: the examples on the card")
     t0 = time.perf_counter()
     out = {"torch_quickstart": quickstart_example(),
            "torch_serve_lm": serve_example(),
            "torch_minisa_plan": plan_example(),
            "torch_train_lm": train_example()}
-    stage("phase 12: the dry run")
-    dryrun_phase(dryruns)
-    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 12 examples: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4108,14 +4123,29 @@ def main(argv) -> int:
                           capture_output=True, text=True, check=True)
     log("nvcc:", nvcc.stdout.strip().splitlines()[-1])
     with tempfile.TemporaryDirectory() as tmp:
-        dryruns = start_dryruns(tmp)
+        dryruns: dict = {}
         try:
-            return run_phases(name_limit, dryruns)
+            return run_phases(name_limit, tmp, dryruns)
         finally:
             stop_dryruns(dryruns)
 
 
-def run_phases(name_limit: str, dryruns: dict) -> int:
+def dryruns_alive() -> int:
+    """Processes of this machine running :data:`DRYRUN_CODE` (read from
+    ``/proc``): phases 10 and 11 run with none beside them."""
+    alive = 0
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                alive += DRYRUN_CODE.encode() in f.read()
+        except OSError:
+            continue
+    return alive
+
+
+def run_phases(name_limit: str, tmp: str, dryruns: dict) -> int:
     t0 = time.perf_counter()
     info = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
@@ -4146,7 +4176,7 @@ def run_phases(name_limit: str, dryruns: dict) -> int:
     check_rows_alone(shapes, gen)
     clocks("after nest_gemm")
     k3 = check_flash_decode(timer, gen)
-    k3b = check_flash_decode_bf16(timer, gen)
+    k3b = check_flash_decode_bf16("flash_decode_bf16", timer, gen)
     check_decode_f32_digests()
     rcache = ProgramCache()
     r_pre = ModelExecutable.for_cell("gemma-7b", "prefill_tiny",
@@ -4159,9 +4189,9 @@ def run_phases(name_limit: str, dryruns: dict) -> int:
     k5, attn = check_flash_attention(timer, gen)
     k5b = check_flash_attention_bf16(timer, gen)
     k5m = check_flash_attention_mla(timer, gen)
-    k3m = check_flash_decode_mla(timer, gen)
+    k3m = check_flash_decode_bf16("flash_decode_mla", timer, gen)
     k5e = check_flash_attention_enc(timer, gen)
-    k3c = check_flash_decode_cross(timer, gen)
+    k3c = check_flash_decode_bf16("flash_decode_cross", timer, gen)
     k6, scan = check_mamba_scan(timer, gen)
     k6m = check_mamba_scan(timer, gen, SCAN_MAMBA2_SHAPE, per_head=True)[0]
     torch.cuda.empty_cache()
@@ -4193,11 +4223,20 @@ def run_phases(name_limit: str, dryruns: dict) -> int:
     rank_phase(fw_weights, mesh, fw_sums, name_limit)
     del fw_weights
     torch.cuda.empty_cache()
+    log(f"phase 10: dry-run processes alive {dryruns_alive()}")
     zoo, zoo_by_arch = zoo_phase(name_limit)
     train, train32 = training_phase()
-    ex = examples_phase(dryruns)
+    log(f"phase 11 done: dry-run processes alive {dryruns_alive()}")
+    assert not dryruns
+    # the dry runs need no card: they run from here on beside phases 12,
+    # 14 and 15, and phase 12's part reads them at the end
+    dryruns.update(start_dryruns(tmp))
+    log(f"dry runs started: dry-run processes alive {dryruns_alive()}")
+    ex = examples_phase()
     mesh_training_phase(name_limit)
     mesh_serve_phase(name_limit)
+    stage("phase 12: the dry run")
+    dryrun_phase(dryruns)
     mla = zoo_by_arch["deepseek-v2-236b"]
     falcon, zamba = zoo_by_arch["falcon-mamba-7b"], zoo_by_arch["zamba2-1.2b"]
 

@@ -6,7 +6,7 @@ NVIDIA GPU.
     git show 69a36e5:src/repro_torch/kernels/csrc/nest_gemm.cu > build/old/nest_gemm.cu
     git show 69a36e5:src/repro_torch/kernels/csrc/fused_chain.cu > build/old/fused_chain.cu
     git show 273c856:src/repro_torch/kernels/csrc/flash_attention.cu > build/old/flash_attention.cu
-    git show bac22f7:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
+    git show cd9a6cc:src/repro_torch/kernels/csrc/flash_decode.cu > build/old/flash_decode.cu
     git show bac22f7:src/repro_torch/kernels/csrc/flash_decode_proj.cu > build/old/flash_decode_proj.cu
     git show f0798b2:src/repro_torch/kernels/csrc/flash_attention_bwd.cu > build/old/flash_attention_bwd.cu
     git show f0798b2:src/repro_torch/kernels/csrc/mamba_scan_bwd.cu > build/old/mamba_scan_bwd.cu
@@ -19,7 +19,10 @@ source must have the C interface of the commit named above:
 ``flash_attention_fwd`` without the lse pointer it took later (commits
 273c856 to 6eaa34c);
 ``flash_decode_f32`` as it is now (commit bac22f7, the kernel before its
-bf16 route); ``flash_decode_proj_f32`` as it is now (commit bac22f7);
+bf16 route, or later) and, where the earlier source has it,
+``flash_decode_bf16`` as it is now (commit cd9a6cc, the bf16 route as a
+template of the fp32 kernel, before its redesign);
+``flash_decode_proj_f32`` as it is now (commit bac22f7);
 ``flash_attention_bwd`` as it is now (commit f0798b2, FFMA from shared
 memory); ``mamba_scan_bwd_f32`` taking h0 and a checkpoint scratch, which
 it fills by replaying the scan (commit f0798b2).  They are built with the
@@ -27,7 +30,9 @@ port's nvcc flags.  On the same inputs, for each of
 ``chip_smoke.py``'s prefill nest_gemm shapes (M > 8) and fused_chain
 cases, this prints whether the two outputs are ``torch.equal``; for
 flash_attention at ``chip_smoke.py``'s shape (fp32 and bf16),
-flash_decode at its case and the serves' shapes, and flash_decode_proj
+flash_decode at its case and the serves' shapes (and, with an earlier
+bf16 route, at ``chip_smoke.py``'s three bf16 rows at their check()
+tolerance), and flash_decode_proj
 at ``chip_smoke.py``'s K4 case (full-width gemma-7b's attention segment
 at 4 requests, wo 4096 x 3072), whose sum orders changed, whether they
 are ``torch.equal`` and ``torch.allclose`` at ``check()``'s tolerance (fp32: rtol 2e-4, atol
@@ -120,6 +125,13 @@ class Old:
         self.fc = fns.get("fused_chain")
         self.fa = fns.get("flash_attention")
         self.fd = fns.get("flash_decode")
+        self.fd_bf16 = None
+        if "flash_decode" in libs:
+            lib = ctypes.CDLL(libs["flash_decode"])
+            if hasattr(lib, "flash_decode_bf16"):
+                self.fd_bf16 = lib.flash_decode_bf16
+                self.fd_bf16.argtypes = argtypes["flash_decode"]
+                self.fd_bf16.restype = ctypes.c_int
         self.fdp = fns.get("flash_decode_proj")
         self.fab = fns.get("flash_attention_bwd")
         self.msb = fns.get("mamba_scan_bwd")
@@ -167,13 +179,14 @@ class Old:
         build.raise_on_error(err, "earlier flash_attention")
         return out
 
-    def flash_decode(self, q, k, v, lengths):
+    def flash_decode(self, q, k, v, lengths, scale=1.0):
         b, sq, d = q.shape
         dv = v.shape[2]
-        out = torch.empty((b, sq, dv), device=q.device)
-        err = self.fd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
-                      d, dv, 1.0, build.stream_handle())
+        fn = self.fd_bf16 if q.dtype == torch.bfloat16 else self.fd
+        out = torch.empty((b, sq, dv), device=q.device, dtype=q.dtype)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), b, sq, k.shape[1], d,
+                 dv, scale, build.stream_handle())
         build.raise_on_error(err, "earlier flash_decode")
         return out
 
@@ -324,6 +337,18 @@ def compare_decode(old, gen, timer) -> None:
     for case, a, b in zip(cs.DIGEST_CASES, new, earlier):
         print(f"  fp32 digest {case[:5]}: this tree {a} earlier {b} "
               f"(equal {a == b})", flush=True)
+    if old.fd_bf16 is None:
+        return
+    print("flash_decode bf16: chip_smoke.py's rows, B sq skv d dv "
+          "length", flush=True)
+    for name in ("flash_decode_cross", "flash_decode_mla",
+                 "flash_decode_bf16"):
+        q, k, v, lens, scale = cs.decode_bf16_inputs(name, gen)
+        case = cs.decode_bf16_case(name)
+        compare(f"{name} {case[:6]}",
+                lambda: fa.flash_decode(q, k, v, lens, scale=scale),
+                lambda: old.flash_decode(q, k, v, lens, scale),
+                timer, (cs.DECODE_BF16_RTOL[name], cs.RTOL * case[3]))
 
 
 def compare_decode_proj(old, gen, timer) -> None:

@@ -6,7 +6,11 @@ launch advances a whole batch of decode requests, each row attending
 over its own K/V masked to its own true length, by the online-softmax
 recurrence over KV blocks, on fp32 or bf16 operands with fp32 sums.
 Like the TPU kernel it applies no ``d**-0.5`` by default: the MINISA
-GEMM stream's score GEMM carries none.
+GEMM stream's score GEMM carries none.  The bf16 route cuts the keys
+into ranges by :func:`decode_plan` (skv alone sets them), one block of a
+thread-block cluster a range, and merges the ranges' partial results in
+rank order (``kernels.ref.flash_decode_split_ref`` is its plain
+version); the fp32 route is the kernel of the MINISA serve, unchanged.
 
 ``flash_decode_proj(q, k, v, lengths, wo, ...)`` launches
 ``csrc/flash_decode_proj.cu``: the same attention for every request,
@@ -56,6 +60,7 @@ _PROJ_WINDOW_FLOATS = 8 * 512 + 2 * 8 * 64
 MAX_HEAD_DIM = 256
 
 _FN: dict = {}
+_PLAN_FN = None
 _PROJ_FN = None
 _ATTN_FN = None
 _ATTN_BWD_FN = None
@@ -75,6 +80,62 @@ def _fn(dtype):
         fn.restype = ctypes.c_int
         _FN[dtype] = fn
     return fn
+
+
+#: the bf16 route's cut (``csrc/flash_decode.cu``, ``plan``): at most 8
+#: ranges (a cluster) of at least 128 keys, each a multiple of 64; chunks
+#: of 64 keys, 32 where one of 64 passes 96 KB; as many chunks in flight
+#: as fit in 200 KB beside q, P and the row sums (at most 8); a strip of
+#: at most 512 columns of v (128 below 16 query rows), padded to 64, 128,
+#: 256 or 512
+_MAX_SPLITS, _SPLIT_MIN, _SPLIT_ALIGN = 8, 128, 64
+_MAX_STRIP, _FEW_ROWS_STRIP = 512, 128
+_STAGE_BUDGET, _SMEM_BUDGET, _MAX_STAGES = 96 << 10, 200 << 10, 8
+_PLAN_KEYS = ("split", "n_split", "chunk", "stages", "dp", "dvp", "strip",
+              "strips", "smem")
+
+
+def decode_plan(skv: int, d: int, dv: int, sq: int) -> dict:
+    """How the bf16 route cuts a launch at (skv, d, dv, sq), whatever the
+    batch: ``split`` keys a range and ``n_split`` ranges (the cluster's
+    ranks; skv alone sets both), ``chunk`` keys a chunk, ``stages``
+    chunks in flight, ``dp`` and ``dvp`` the padded widths, ``strip``
+    columns of v a block (``strips`` of them; one of up to 512 where a
+    block's 16 rows share their scores, 128 below 16 query rows, where
+    each strip scores its one row again), ``smem`` bytes a block (the
+    kernel's ``plan``; :func:`decode_plan_on_card` asks the kernel
+    itself)."""
+    dp = -(-max(d, 1) // 16) * 16
+    strip = _FEW_ROWS_STRIP if sq < 16 else _MAX_STRIP
+    strips = -(-dv // strip)
+    cols = min(dv, strip)
+    dvp = next(w for w in (64, 128, 256, 512) if cols <= w)
+    n = min(_MAX_SPLITS, -(-skv // _SPLIT_MIN)) if skv > 0 else 1
+    split = -(-(-(-max(skv, 1) // n)) // _SPLIT_ALIGN) * _SPLIT_ALIGN
+    n_split = -(-skv // split) if skv > 0 else 1
+
+    def stage(kc):
+        return 2 * kc * ((dp + 8) + (dvp + 8))
+    chunk = 64 if stage(64) <= _STAGE_BUDGET else 32
+    fixed = 2 * 16 * ((dp + 8) + (chunk + 8)) + 4 * 2 * 4 * 16
+    fit = max(1, (_SMEM_BUDGET - fixed) // stage(chunk))
+    stages = min(split // chunk, fit, _MAX_STAGES)
+    smem = fixed + max(stage(chunk) * stages, 4 * (16 * dvp + 2 * 16))
+    return dict(zip(_PLAN_KEYS, (split, n_split, chunk, stages, dp, dvp,
+                                 strip, strips, smem)))
+
+
+def decode_plan_on_card(skv: int, d: int, dv: int, sq: int) -> dict:
+    """:func:`decode_plan` as the built kernel computes it."""
+    global _PLAN_FN
+    if _PLAN_FN is None:
+        fn = build.load("flash_decode").flash_decode_bf16_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = None
+        _PLAN_FN = fn
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    _PLAN_FN(skv, d, dv, sq, ctypes.cast(out, ctypes.c_void_p))
+    return dict(zip(_PLAN_KEYS, list(out)))
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

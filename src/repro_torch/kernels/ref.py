@@ -165,6 +165,53 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp_min(l, 1e-30)).to(out_dtype)
 
 
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor, *,
+                           split: int, chunk: int,
+                           scale: float = 1.0) -> torch.Tensor:
+    """:func:`flash_decode_ref` as the bf16 route cuts it: the keys in
+    ranges of ``split`` from 0, each range by the recurrence over blocks
+    of ``chunk`` keys with its own (m, l, acc), then the ranges merged in
+    order: m = max m_i, l = sum l_i e^(m_i - m), out = sum acc_i
+    e^(m_i - m) / l.  A range past a request's length has m_i = -1e30,
+    l_i = 0, acc_i = 0 and adds nothing; a request of length 0 gives
+    zeros.  p is rounded to v's dtype before P V, l sums it unrounded,
+    the result takes q's dtype."""
+    b, sq, _ = q.shape
+    sk = k.shape[1]
+    out_dtype, p_dtype = q.dtype, v.dtype
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    lens = lengths.reshape(b, 1, 1).to(device=q.device)
+    parts = []
+    for r0 in range(0, max(sk, 1), split):
+        m = torch.full((b, sq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, sq, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, sq, v.shape[2]), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(r0, min(r0 + split, sk), chunk):
+            k1 = min(k0 + chunk, r0 + split, sk)
+            s = (q @ k[:, k0:k1].transpose(1, 2)) * scale
+            kpos = torch.arange(k0, k1, device=q.device).reshape(1, 1, -1)
+            s = torch.where(kpos < lens, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                            torch.exp(s - m_new))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(p_dtype).to(torch.float32) @ v[:, k0:k1]
+            m = m_new
+        parts.append((m, l, acc))
+    m = torch.stack([part[0] for part in parts]).amax(0)
+    l = torch.zeros_like(m)
+    out = torch.zeros_like(parts[0][2])
+    for m_i, l_i, acc_i in parts:
+        w = torch.exp(m_i - m)
+        l = l + l_i * w
+        out = out + acc_i * w
+    return (out / torch.clamp_min(l, 1e-30)).to(out_dtype)
+
+
 def flash_decode_proj_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, wo: torch.Tensor, *,
                           m_out: int, k_out: int, bkv: int = 128,

@@ -80,18 +80,20 @@ def parse(argv=None) -> argparse.Namespace:
 def _join_group(device: str) -> None:
     """Join the process group ``torchrun`` describes (``WORLD_SIZE`` > 1
     in the environment, no group up yet): gloo on the CPU, nccl when
-    every rank has a card of its own, and ``dist.ranks.HOST_STAGED``
-    when ranks share a card (nccl refuses them, and gloo crashes under
-    the DTensors' collectives on the card)."""
+    every rank of this node (``LOCAL_WORLD_SIZE``, all of the world when
+    unset) has a card of its own, and ``dist.ranks.HOST_STAGED`` when
+    ranks share a card (nccl refuses them, and gloo crashes under the
+    DTensors' collectives on the card)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world < 2 or dist.is_initialized():
         return
     backend = "gloo"
     if device != "cpu":
         local = int(os.environ.get("LOCAL_RANK", "0"))
-        torch.cuda.set_device(local % torch.cuda.device_count())
-        backend = ("nccl" if torch.cuda.device_count() >= world
-                   else ranks.HOST_STAGED)
+        on_node = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(local % cards)
+        backend = "nccl" if cards >= on_node else ranks.HOST_STAGED
         ranks.register_host_staged()
     dist.init_process_group(backend)
 

@@ -22,12 +22,15 @@ are row-local, so on a mesh each rank routes its own batch rows.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
 
-from repro_torch.dist.sharding import constrain_batch, like, row_local
+from repro_torch.dist.sharding import (constrain_batch, is_dtensor,
+                                       leading_spec, like, mesh_sizes,
+                                       placements, row_local)
 from repro_torch.models.common import Maker, activation
 from repro_torch.models.mlp import GATED
 
@@ -74,6 +77,57 @@ def route(gate_idx: torch.Tensor, num_experts: int, cap: int):
     return order, token, slot, keep
 
 
+def expert_ffn(xs: torch.Tensor, *ws, kind: str) -> torch.Tensor:
+    """xs [B, E, cap, d] through each expert's FFN, ``ws`` its (w_gate,)
+    w_up [E, d, f] and w_down [E, f, d], as the JAX package's einsums:
+    a product copies at most xs, laid out by expert, and never a weight
+    (a broadcast ``xs @ w`` writes B copies of w)."""
+    w_down = ws[-1].to(xs.dtype)
+
+    def up(w):
+        return torch.einsum("becd,edf->becf", xs, w.to(xs.dtype))
+    if kind in GATED:
+        h = activation(GATED[kind])(up(ws[0])) * up(ws[1])
+    else:
+        h = activation(kind)(up(ws[0]))
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+def experts_on_mesh(fn, xs, ws):
+    """``fn(xs, *ws)`` (:func:`expert_ffn`) on DTensors, in a ``local_map``
+    region: each rank takes its batch rows of xs (over the data axes,
+    where the batch divides them) and every expert's weights whole but
+    for their ffn columns (over ``"model"``, where f divides it, as
+    ``expert_ffn``'s RULES place them), so no weight is laid out by batch
+    row.  The output is each rank's ffn columns' part, partial over
+    ``"model"``; a weight's gradient is each rank's rows' part, partial
+    over the data axes; xs's is partial over ``"model"``."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    ref = next(t for t in (xs, *ws) if is_dtensor(t))
+    mesh = ref.device_mesh
+    xs, ws = like(xs, ref), tuple(like(w, ref) for w in ws)
+    sizes = mesh_sizes(mesh)
+    bspec = leading_spec((xs.shape[0],), sizes)
+    rows = set(bspec[0] if bspec and isinstance(bspec[0], tuple)
+               else bspec)
+    cols = ("model",) if ("model" in sizes
+                          and ws[-1].shape[1] % sizes["model"] == 0) else ()
+
+    def place(spec, ndim, partial=()):
+        out = placements(spec, ndim, mesh)
+        return tuple(Partial() if n in partial else p
+                     for n, p in zip(sizes, out))
+    w_specs = [(None, None) + cols] * (len(ws) - 1) + [(None,) + cols]
+    part = place(bspec, 4, cols)
+    return local_map(
+        fn, out_placements=list(part),
+        in_placements=(place(bspec, 4), *(place(w, 3) for w in w_specs)),
+        in_grad_placements=(part, *(place(w, 3, rows) for w in w_specs)),
+        device_mesh=mesh, redistribute_inputs=True)(xs, *ws)
+
+
 class SharedExperts(nn.Module):
     """``moe_params``' ``shared``: a gated MLP over every token."""
 
@@ -110,14 +164,15 @@ class MoE(nn.Module):
                        if num_shared else None)
 
     def _expert_ffn(self, xs: torch.Tensor) -> torch.Tensor:
-        """xs [B, E, cap, d] -> [B, E, cap, d] through each expert's FFN."""
-        def up(w):              # becd,edf->becf: e broadcasts over b
-            return xs @ w.to(xs.dtype)
-        if self.kind in GATED:
-            h = activation(GATED[self.kind])(up(self.w_gate)) * up(self.w_up)
-        else:
-            h = activation(self.kind)(up(self.w_up))
-        return h @ self.w_down.to(xs.dtype)
+        """xs [B, E, cap, d] -> [B, E, cap, d] through each expert's FFN.
+        On a mesh each rank runs it on its own batch rows and experts'
+        ffn columns (:func:`experts_on_mesh`)."""
+        ws = ((self.w_gate,) if self.kind in GATED else ()) \
+            + (self.w_up, self.w_down)
+        fn = functools.partial(expert_ffn, kind=self.kind)
+        if any(is_dtensor(t) for t in (xs, *ws)):
+            return experts_on_mesh(fn, xs, ws)
+        return fn(xs, *ws)
 
     def _dispatch(self, x: torch.Tensor, probs: torch.Tensor):
         """Routing and dispatch, row by row: x [B, S, d], probs [B, S, E]

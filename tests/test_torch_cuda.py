@@ -700,6 +700,119 @@ def test_flash_decode_bf16_kernel_matches_plain(cuda, b, g, d, skv, dv,
                                atol=1e-2)
 
 
+#: the bf16 route's rows in ``chip_smoke.py`` phase 2: whisper-base's
+#: cross attention (1500 keys, 8 ranges), MLA's absorbed decode (128 rows,
+#: d 576, dv 512) and gemma-7b's self attention (B, sq, skv, d, dv,
+#: length, scale)
+BF16_ROUTE_CASES = [(32, 1, 1500, 64, 64, 1500, 64 ** -0.5),
+                    (4, 128, 49, 576, 512, 47, 192 ** -0.5),
+                    (64, 1, 49, 256, 256, 47, 256 ** -0.5)]
+
+
+def _bf16_inputs(b, sq, skv, d, dv, scale, device):
+    """q at 1/scale (peaked scores), k at 0.5, v at 2 (outputs far above
+    the atol), in bf16."""
+    q = _t(_np((b, sq, d)), device) / scale
+    k = _t(_np((b, skv, d), 0.5), device)
+    v = _t(_np((b, skv, dv), 2.0), device)
+    return (x.to(torch.bfloat16) for x in (q, k, v))
+
+
+def _bf16_close(got, want, d):
+    """``chip_smoke.check``'s tolerance and one bf16 place more: rtol 2e-4
+    + 2**-7, atol 2e-4 * d."""
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=2e-4 + 2 ** -7, atol=2e-4 * d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,d,dv,length,scale", BF16_ROUTE_CASES)
+def test_flash_decode_bf16_route_matches_plain(cuda, b, sq, skv, d, dv,
+                                               length, scale):
+    """The redesigned bf16 route at the shapes it was redesigned for,
+    against the plain version and against the split plain version cut as
+    the kernel cuts it (``decode_plan``, which the built kernel agrees
+    with); one launch."""
+    q, k, v = _bf16_inputs(b, sq, skv, d, dv, scale, cuda)
+    lens = torch.full((b,), length, dtype=torch.int32, device=cuda)
+    before = fa.launches
+    got = fa.flash_decode(q, k, v, lens, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, dv)
+    plan = fa.decode_plan(skv, d, dv, sq)
+    assert fa.decode_plan_on_card(skv, d, dv, sq) == plan
+    _bf16_close(got, ref.flash_decode_ref(q, k, v, lens, scale=scale), d)
+    _bf16_close(got, ref.flash_decode_split_ref(
+        q, k, v, lens, split=plan["split"], chunk=plan["chunk"],
+        scale=scale), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,d,dv,lengths", [
+    # 3 ranges of 128 keys (the last 44): lengths 0, 1, skv, one ending
+    # inside the first range (the later two empty), one off the chunk
+    (5, 1, 300, 64, 64, (0, 1, 300, 50, 173)),
+    # two row groups, the second part full; MLA-like widths
+    (3, 20, 300, 96, 64, (300, 129, 7)),
+    # d and dv off the 8-element grid (element copies), 8 ranges of 64+
+    (2, 3, 1000, 20, 28, (1000, 999)),
+    # two strips of v (640 columns), one range
+    (2, 2, 70, 64, 640, (70, 33)),
+    # a long cache: 8 ranges of 512 keys, 5 chunks in flight
+    (2, 4, 4096, 128, 128, (4096, 2500)),
+])
+def test_flash_decode_bf16_route_shapes(cuda, b, sq, skv, d, dv, lengths):
+    """Ragged lengths (0, 1, skv), skv off the chunk and off the range,
+    empty ranges, row groups past 16, element copies, strips, long
+    caches: the kernel against the plain version; a request of length 0
+    gives zeros."""
+    q, k, v = _bf16_inputs(b, sq, skv, d, dv, d ** -0.5, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = fa.flash_decode(q, k, v, lens, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    plan = fa.decode_plan(skv, d, dv, sq)
+    assert fa.decode_plan_on_card(skv, d, dv, sq) == plan
+    _bf16_close(got, ref.flash_decode_ref(q, k, v, lens, scale=d ** -0.5),
+                d)
+    if 0 in lengths:
+        assert not got[list(lengths).index(0)].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,d,dv,length,scale", BF16_ROUTE_CASES)
+def test_flash_decode_bf16_route_rows_independent_of_batch(
+        cuda, b, sq, skv, d, dv, length, scale):
+    """A row's output is the same bits whether its request comes alone or
+    in a batch of 32 (the cut depends on skv alone), and two calls agree
+    bit for bit."""
+    n = 32
+    q, k, v = _bf16_inputs(n, sq, skv, d, dv, scale, cuda)
+    lens = torch.tensor([length - i % 3 for i in range(n)],
+                        dtype=torch.int32, device=cuda)
+    both = fa.flash_decode(q, k, v, lens, scale=scale)
+    again = fa.flash_decode(q, k, v, lens, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(both, again)
+    for r in (0, 5, n - 1):
+        alone = fa.flash_decode(q[r:r + 1].contiguous(),
+                                k[r:r + 1].contiguous(),
+                                v[r:r + 1].contiguous(), lens[r:r + 1],
+                                scale=scale)
+        assert torch.equal(alone[0], both[r]), r
+
+
+@pytest.mark.cuda
+def test_flash_decode_bf16_route_raises_on_what_it_cannot_take(cuda):
+    """A head too wide for one chunk in a block's shared memory is refused
+    by the launch and raised: no fallback."""
+    q = torch.zeros((1, 1, 8192), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 16, 8192), dtype=torch.bfloat16, device=cuda)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="flash_decode launch failed"):
+        fa.flash_decode(q, k, k, lens)
+
+
 def _chip_smoke():
     import sys
     from pathlib import Path

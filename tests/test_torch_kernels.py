@@ -109,6 +109,105 @@ def test_flash_decode_bf16_plain_matches_pallas(qshape, skv, lengths, bkv):
         assert not got[list(lengths).index(0)].float().any()
 
 
+#: the split plain version's cases: skv 300 in 4 ranges of 80 keys, each
+#: in chunks of 32 (a range ends inside its third chunk); lengths 0, 1,
+#: 50 (it ends inside the first range: the later three are empty), 173
+#: (inside the third) and 300; one query row or a row group of 16; d 64
+#: with dv 64, and d 96 with dv 64 (MLA's wider keys)
+SPLIT_LENGTHS = (0, 1, 50, 300, 173)
+SPLIT_CASES = [(sq, d, dv) for sq in (1, 16) for d, dv in ((64, 64),
+                                                           (96, 64))]
+
+
+def _split_inputs(sq, d, dv, dtype):
+    """Seeded numpy q, k, v (skv 300) in ``dtype`` as JAX arrays, and the
+    same values as torch tensors."""
+    rng = np.random.default_rng(sq * 1000 + d)
+    b, skv = len(SPLIT_LENGTHS), 300
+    arrays = (rng.standard_normal((b, sq, d)),
+              rng.standard_normal((b, skv, d)) * 0.5,
+              rng.standard_normal((b, skv, dv)))
+    jax_arrays = [jnp.asarray(a.astype(np.float32), getattr(jnp, dtype))
+                  for a in arrays]
+    return jax_arrays, [_from_jnp(x, getattr(torch, dtype))
+                        for x in jax_arrays]
+
+
+#: (rtol, atol) of the split version against the JAX kernel and against
+#: the unsplit plain version: fp32 at the reference's 2e-4 (atol 2e-4 * d),
+#: bf16 within a bf16 place (1e-2, the card tests' bf16 tolerance): the
+#: ranges round p to bf16 against their own running maxima
+SPLIT_TOL = {"float32": lambda d: (2e-4, 2e-4 * d),
+             "bfloat16": lambda d: (1e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,d,dv", SPLIT_CASES)
+def test_flash_decode_split_plain_matches_pallas(sq, d, dv, dtype):
+    """The bf16 route's plain version, the keys in 4 ranges merged in
+    order, against the JAX ``flash_decode`` in interpret mode on the same
+    inputs (v zero-padded to d for the JAX kernel, which takes one width,
+    and its output cut back to dv); a request of length 0 gives zeros."""
+    (jq, jk, jv), (tq, tk, tv) = _split_inputs(sq, d, dv, dtype)
+    lens = np.asarray(SPLIT_LENGTHS, np.int32)
+    jvp = jnp.concatenate([jv, jnp.zeros((*jv.shape[:2], d - dv),
+                                         jv.dtype)], -1)
+    want = np.asarray(jops.flash_decode(jq, jk, jvp, lens, bkv=64,
+                                        interpret=True),
+                      np.float32)[..., :dv]
+    got = ref.flash_decode_split_ref(tq, tk, tv, torch.from_numpy(lens),
+                                     split=80, chunk=32)
+    assert got.dtype == tq.dtype and got.shape == (len(lens), sq, dv)
+    rtol, atol = SPLIT_TOL[dtype](d)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol)
+    assert not got[0].float().any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,d,dv", SPLIT_CASES)
+def test_flash_decode_split_plain_matches_the_unsplit(sq, d, dv, dtype):
+    """The split version against ``flash_decode_ref`` (one recurrence
+    over every key); with one range holding every key it is that
+    recurrence bit for bit."""
+    _, (tq, tk, tv) = _split_inputs(sq, d, dv, dtype)
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32)
+    want = ref.flash_decode_ref(tq, tk, tv, lens, bkv=32)
+    got = ref.flash_decode_split_ref(tq, tk, tv, lens, split=80, chunk=32)
+    rtol, atol = SPLIT_TOL[dtype](d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    whole = ref.flash_decode_split_ref(tq, tk, tv, lens, split=320,
+                                       chunk=32)
+    assert torch.equal(whole, want)
+
+
+def test_flash_decode_bf16_plan_depends_on_skv_alone():
+    """The bf16 route's cut: whisper's cross attention (1500 keys) in 8
+    ranges of 192, the zoo's and MLA's 49 keys in one (MLA's wide rows in
+    chunks of 32, two in flight, its 512 columns one strip; gemma's one
+    query row in strips of 128), a long cache in 8 ranges; the ranges the
+    same at any d, dv and sq, and never past a block's shared memory."""
+    assert fa.decode_plan(1500, 64, 64, 1) == dict(
+        split=192, n_split=8, chunk=64, stages=3, dp=64, dvp=64, strip=128,
+        strips=1, smem=60416)
+    zoo = fa.decode_plan(49, 256, 256, 1)
+    assert (zoo["n_split"], zoo["chunk"], zoo["stages"], zoo["strips"]) \
+        == (1, 64, 1, 2)
+    mla = fa.decode_plan(49, 576, 512, 128)
+    assert (mla["n_split"], mla["chunk"], mla["stages"], mla["strips"]) \
+        == (1, 32, 2, 1)
+    assert fa.decode_plan(32768, 128, 128, 8)["n_split"] == 8
+    assert fa.decode_plan(300, 64, 64, 1)["split"] == 128
+    assert fa.decode_plan(1, 64, 64, 1)["n_split"] == 1
+    shapes = ((64, 64, 1), (256, 256, 1), (576, 512, 128), (20, 28, 3),
+              (1024, 1024, 16))
+    for skv in (1, 49, 129, 300, 1500, 4096, 32768):
+        plans = [fa.decode_plan(skv, d, dv, sq) for d, dv, sq in shapes]
+        assert len({(p["split"], p["n_split"]) for p in plans}) == 1
+        assert all(p["smem"] <= 232448 for p in plans)
+
+
 @pytest.mark.parametrize("b,sq,skv,d,lengths,m_out,k_out,n_out",
                          PROJ_CASES)
 def test_flash_decode_proj_plain_matches_pallas(b, sq, skv, d, lengths,

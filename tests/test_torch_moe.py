@@ -160,3 +160,45 @@ def test_load_numpy_numbers_the_dense_layers():
         model.net.dense_layers[0].mlp.w_up.numpy(), want)
     with pytest.raises(KeyError, match="dense_layers.0"):
         common.load_numpy(model.net, {**tree, "dense_layers": []})
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+def test_expert_products_copy_no_expert_weight(kind):
+    """The experts' products never hold a copy of an expert weight a batch
+    row: at batch 4, with each expert's slots (8) fewer than d (64), no op
+    of the layer writes an output of B x E x d x f elements or more (a
+    weight broadcast over the batch and laid out for ``bmm`` writes
+    exactly that), and the result is the layer written out expert by
+    expert."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    b, s, d, f, e, k = 4, 8, 64, 48, 8, 2
+    gen = torch.Generator().manual_seed(0)
+    layer = moe.MoE(common.Maker("cpu", torch.float32, gen), d, f, e, kind,
+                    top_k=k)
+    cap = moe.capacity(s, k, e, layer.capacity_factor)
+    assert cap < d
+    xs = torch.randn((b, e, cap, d), generator=gen)
+
+    sizes = []
+
+    class Sizes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    sizes.append((t.numel(), str(func)))
+            return out
+
+    with Sizes():
+        got = layer._expert_ffn(xs)
+        layer(torch.randn((b, s, d), generator=gen))
+    bound = b * e * d * f
+    assert sizes and max(sizes)[0] < bound, max(sizes)
+
+    act = common.activation(moe.GATED.get(kind, kind))
+    for ex in range(e):
+        h = act(xs[:, ex] @ layer.w_up[ex]) if kind not in moe.GATED else \
+            act(xs[:, ex] @ layer.w_gate[ex]) * (xs[:, ex] @ layer.w_up[ex])
+        torch.testing.assert_close(got[:, ex], h @ layer.w_down[ex],
+                                   rtol=2e-4, atol=2e-4)

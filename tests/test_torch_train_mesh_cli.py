@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import _torch_train_mesh_fns as fns
 from _train_mesh_common import flatten
@@ -146,3 +147,31 @@ def test_production_mesh_needs_256_ranks(tmp_path):
     for o in out:
         assert o.startswith("NotImplementedError") and \
             "256 ranks; this one has 4" in o, o
+
+
+@pytest.mark.parametrize("env,cards,want", [
+    ({"WORLD_SIZE": "16", "LOCAL_WORLD_SIZE": "8", "LOCAL_RANK": "3"}, 8,
+     "nccl"),
+    ({"WORLD_SIZE": "4", "LOCAL_WORLD_SIZE": "4", "LOCAL_RANK": "2"}, 1,
+     ranks.HOST_STAGED),
+    ({"WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1", "LOCAL_RANK": "0"}, 1,
+     None),
+], ids=["16_ranks_on_2_nodes_of_8", "4_ranks_on_1_card", "1_rank"])
+def test_launcher_picks_the_transport_by_the_node_s_ranks(monkeypatch, env,
+                                                          cards, want):
+    """``_join_group`` under ``torchrun``: nccl when the node has a card
+    for each of its own ranks (``LOCAL_WORLD_SIZE``), whatever the world
+    size; the host-staged transport when ranks share a card; no group
+    for one rank.  Each rank takes card ``LOCAL_RANK % cards``."""
+    for key in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.setenv(key, env[key])
+    joined, devices = [], []
+    monkeypatch.setattr(launch_train.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(launch_train.dist, "init_process_group",
+                        lambda backend, *a, **k: joined.append(backend))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", devices.append)
+    launch_train._join_group("cuda")
+    assert joined == ([] if want is None else [want])
+    assert devices == ([] if want is None
+                       else [int(env["LOCAL_RANK"]) % cards])
