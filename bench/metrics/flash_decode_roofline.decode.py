@@ -1,0 +1,11 @@
+"""kernels.ops.flash_decode's calls in the traced slice: their bound
+seconds over the device seconds they launched, in %."""
+
+from bench.readers import roofline
+
+#: what the traced slice has to range
+OPS = ("flash_decode",)
+
+
+def read(run):
+    return roofline(run, "flash_decode")
